@@ -12,8 +12,11 @@ result line:
 3. kernel vs plain: the splat kernel against its plain PyTorch version on
    the card, on the train step's own inputs at 384x1280 (B=8, feature map
    96x320: C=3 N=30 and C=9 N=270), on dense random instances at the same
-   shapes and on edge cases; then every target of one train batch, card
-   against CPU;
+   shapes and on edge cases (boxes on each side of a tile border, ragged
+   W and H, N above one cull round, N above 48 KB of shared list, one
+   channel, N=0, radius 0, an all-invalid element), and an N past the
+   shared list must be refused; then every target of one train batch,
+   card against CPU;
 4. serve: DLA-34 (random weights from a seed) at 384x1280, float32, eval
    forward + 3D decode, one image on the card against the CPU, then
    frames/s at batch 8;
@@ -53,6 +56,9 @@ F32_OPS_PER_S = 67e12
 # the max.
 SPLAT_OPS_PER_PIXEL = 9
 SPLAT_TOL = 1e-6       # kernel against its plain version, max |diff|
+# Instances per batch element past the kernel's shared-memory list (20
+# bytes each, 227 KB on an H100): the wrapper must refuse them.
+TOO_MANY_N = 16384
 HEAD_ATOL = 1e-3       # continuous head maps, card against CPU (float32)
 
 
@@ -171,6 +177,52 @@ def random_instances(rng, b, n, c, h, w, radius_max=15):
     return [centers, radius, chan, valid]
 
 
+def border_instances(b: int, tile_h: int, tile_w: int):
+    """Splat inputs (numpy): one instance per channel, radius 3, each box
+    meeting the border between the first and second kernel tile (tile_w
+    columns, tile_h rows) in one way: channels 0-3 on columns, ending on
+    tile_w - 1, starting on tile_w, reaching one pixel across to tile_w,
+    starting one pixel before it; channels 4-7 the same on rows. A cull
+    that is off by one drops a whole tile's share of a box."""
+    r = 3
+    xs = [tile_w - 1 - r, tile_w + r, tile_w - r, tile_w - 1 + r]
+    ys = [tile_h - 1 - r, tile_h + r, tile_h - r, tile_h - 1 + r]
+    xy = ([(x, tile_h // 2) for x in xs]
+          + [(tile_w + tile_w // 2, y) for y in ys])
+    centers = np.tile(np.array(xy, np.int32), (b, 1, 1))
+    radius = np.full((b, 8), r, np.int32)
+    chan = np.tile(np.arange(8, dtype=np.int32), (b, 1))
+    return [centers, radius, chan, np.ones((b, 8), bool)]
+
+
+def splat_cases(rng, tile_h: int, tile_w: int):
+    """The splat kernel's cases beyond the main path's own calls, as
+    {what: (numpy inputs, C, H, W)}: dense random instances at the
+    main-path shapes, then the edge cases."""
+    h, w = FEAT_HW
+    cases = {f"dense random, C={c}": (
+        random_instances(rng, TRAIN_BATCH, n, c, h, w), c, h, w)
+        for n, c in ((NUM_OBJ, 3), (NUM_OBJ * 9, 9))}
+    edge = random_instances(rng, 2, 16, 3, 24, 80, radius_max=1)
+    edge[1][:] = 0
+    empty = random_instances(rng, 3, 20, 3, 24, 80)
+    empty[3][1] = False
+    return {
+        **cases,
+        "radius 0": (edge, 3, 24, 80),
+        "one element all invalid": (empty, 3, 24, 80),
+        "W=200": (random_instances(rng, 2, 12, 3, 32, 200), 3, 32, 200),
+        "N=0": (random_instances(rng, 2, 0, 3, 24, 80), 3, 24, 80),
+        "W=77 H=23": (random_instances(rng, 2, 20, 3, 23, 77), 3, 23, 77),
+        "N=600": (random_instances(rng, 2, 600, 9, 24, 80), 9, 24, 80),
+        "C=1": (random_instances(rng, 2, 12, 1, 24, 80), 1, 24, 80),
+        f"boxes on {tile_h}x{tile_w} tile borders": (
+            border_instances(2, tile_h, tile_w), 8, 2 * tile_h + 8,
+            2 * tile_w + 32),
+        "N=3000": (random_instances(rng, 2, 3000, 9, 24, 80), 9, 24, 80),
+    }
+
+
 def splat_bound_ms(args, c: int, h: int, w: int) -> "tuple[float, str]":
     """(least ms, what bounds it) for one splat call:
     each input read once and the map written once, against the operations
@@ -276,36 +328,32 @@ def phase_kernel(rng) -> dict:
             splat.splat_max_heatmap_plain(*args, c, h, w)
 
         bound_ms, bound_by = splat_bound_ms(args, c, h, w)
+        ms = graph_ms(kernel, 50)
         shapes.append(dict(
             name=name, b=args[1].shape[0], n=args[1].shape[1], c=c, h=h,
-            w=w, ms=graph_ms(kernel, 50), plain_ms=graph_ms(plain, 5),
-            bound_ms=bound_ms, bound_by=bound_by,
+            w=w, ms=ms, plain_ms=graph_ms(plain, 5), bound_ms=bound_ms,
+            bound_by=bound_by, bound_share=bound_ms / ms,
             host_ms=host_ms(kernel, 200)))
-        log(f"[kernel] {name}: kernel {shapes[-1]['ms']:.6f} ms, plain "
+        log(f"[kernel] {name}: kernel {ms:.6f} ms, plain "
             f"{shapes[-1]['plain_ms']:.6f} ms (device, CUDA graph), bound "
-            f"{bound_ms:.6f} ms ({bound_by}); the wrapper takes "
-            f"{shapes[-1]['host_ms']:.6f} ms of host time per call")
+            f"{bound_ms:.6f} ms ({bound_by}), {bound_ms / ms:.1%} of the "
+            f"bound; the wrapper takes {shapes[-1]['host_ms']:.6f} ms of "
+            "host time per call")
 
-    # Dense random instances at the main-path shapes, then the edge cases.
-    h, w = FEAT_HW
-    for b, n, c in ((TRAIN_BATCH, NUM_OBJ, 3), (TRAIN_BATCH, NUM_OBJ * 9, 9)):
-        args = [torch.from_numpy(a).to(DEVICE)
-                for a in random_instances(rng, b, n, c, h, w)]
-        check(args, c, h, w, "dense random")
-    edge = random_instances(rng, 2, 16, 3, 24, 80, radius_max=1)
-    edge[1][:] = 0
-    empty = random_instances(rng, 3, 20, 3, 24, 80)
-    empty[3][1] = False
-    for what, (arrays, c, h, w) in {
-        "radius 0": (edge, 3, 24, 80),
-        "one element all invalid": (empty, 3, 24, 80),
-        "W=200": (random_instances(rng, 2, 12, 3, 32, 200), 3, 32, 200),
-        "N=0": (random_instances(rng, 2, 0, 3, 24, 80), 3, 24, 80),
-    }.items():
+    for what, (arrays, c, h, w) in splat_cases(rng, splat.TILE_H,
+                                               splat.TILE_W).items():
         got = check([torch.from_numpy(a).to(DEVICE) for a in arrays], c, h,
                     w, what)
         if what == "one element all invalid" and float(got[1].max()) != 0.0:
             raise AssertionError("an all-invalid element must splat nothing")
+    too_many = [torch.from_numpy(a).to(DEVICE)
+                for a in random_instances(rng, 1, TOO_MANY_N, 3, 24, 80)]
+    try:
+        splat.splat_max_heatmap_cuda(*too_many, 3, 24, 80)
+    except ValueError as e:
+        log(f"[kernel] N={TOO_MANY_N} is refused: {e}")
+    else:
+        raise AssertionError(f"N={TOO_MANY_N} must not fit the shared list")
 
     # Every target of the batch: card (kernel) against CPU (plain version).
     targets_cpu = generate_targets(
@@ -323,6 +371,9 @@ def phase_kernel(rng) -> dict:
 
     total = {k: sum(s[k] for s in shapes)
              for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"[kernel] per train step: kernel {total['ms']:.6f} ms, bound "
+        f"{total['bound_ms']:.6f} ms, {total['bound_ms'] / total['ms']:.1%} "
+        "of the bound")
     return {
         "name": "splat_max_heatmap",
         "route": "cuda",
@@ -334,6 +385,7 @@ def phase_kernel(rng) -> dict:
         "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"],
         "bound_by": max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
+        "bound_share": total["bound_ms"] / total["ms"],
         "library_ms": None,
         "per_call": shapes,
     }

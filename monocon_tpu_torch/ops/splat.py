@@ -8,12 +8,13 @@ to :func:`splat_max_heatmap_plain`, CUDA tensors to the kernel
 the kernel cannot be built or launched. Nothing falls back.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` into the package's own
-``build/`` directory at its first use, keyed by a hash of the source, and loaded with
-``ctypes``.
+``build/`` directory at its first use, keyed by a hash of the source and the
+flags, and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,8 +28,14 @@ import torch
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "splat.cu"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
+# The output tile one block of the kernel owns: channels x rows x columns.
+TILE_C, TILE_H, TILE_W = 5, 32, 32
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", f"-DSPLAT_TILE_C={TILE_C}",
+              f"-DSPLAT_TILE_H={TILE_H}", f"-DSPLAT_TILE_W={TILE_W}")
+# What the kernel's C function returns when a batch element's N instances
+# do not fit its shared-memory list (20 bytes each) on the device.
+TOO_MANY_INSTANCES = -1
 
 # float32 machine epsilon: values below it are dropped.
 F32_EPS = float(torch.finfo(torch.float32).eps)
@@ -48,9 +55,10 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile ``csrc/splat.cu`` into a shared library (once per source
-    hash) and return its path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    """Compile ``csrc/splat.cu`` into a shared library (once per hash of
+    the source and the flags) and return its path."""
+    digest = hashlib.sha256(
+        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"libsplat_{digest}.so"
     if lib_path.exists():
         return lib_path
@@ -86,31 +94,38 @@ def splat_max_heatmap_cuda(centers_xy: torch.Tensor, radius: torch.Tensor,
     """Launch the CUDA kernel on the current stream -> (B, C, H, W) f32."""
     global launch_count
     b, n = radius.shape
+    index = radius.get_device()   # -1 on the CPU
+    pair = (b, n)
     for name, t, dtype, shape in (
         ("centers_xy", centers_xy, torch.int32, (b, n, 2)),
-        ("radius", radius, torch.int32, (b, n)),
-        ("channel_id", channel_id, torch.int32, (b, n)),
-        ("valid", valid, torch.bool, (b, n)),
+        ("radius", radius, torch.int32, pair),
+        ("channel_id", channel_id, torch.int32, pair),
+        ("valid", valid, torch.bool, pair),
     ):
-        if t.device.type != "cuda" or t.dtype != dtype or tuple(t.shape) != shape:
+        # One cheap test per tensor on the way through; the message only
+        # when it fails.
+        if (index < 0 or t.get_device() != index or t.dtype != dtype
+                or t.shape != shape):
             raise ValueError(
-                f"{name}: want a CUDA {dtype} tensor of shape {shape}, got "
-                f"{t.device} {t.dtype} {tuple(t.shape)}")
+                f"{name}: want a {dtype} tensor of shape {shape} on the "
+                f"CUDA device of radius, got {t.device} {t.dtype} "
+                f"{tuple(t.shape)} (radius on {radius.device})")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    devices = {t.device for t in (centers_xy, radius, channel_id, valid)}
-    if len(devices) != 1:
-        raise ValueError(f"inputs lie on several devices: {devices}")
     lib = load()
     out = torch.empty((b, num_channels, feat_h, feat_w), dtype=torch.float32,
                       device=radius.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(radius.device):
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
         err = lib.splat_max_heatmap(
             centers_xy.data_ptr(), radius.data_ptr(), channel_id.data_ptr(),
             valid.data_ptr(), out.data_ptr(), b, n, num_channels, feat_h,
-            feat_w, torch.cuda.current_stream().cuda_stream)
+            feat_w, torch.cuda.current_stream(index).cuda_stream)
+    if err == TOO_MANY_INSTANCES:
+        raise ValueError(f"{n} instances per batch element do not fit the "
+                         "splat kernel's shared-memory list on this device")
     if err != 0:
         raise RuntimeError(f"splat kernel launch failed: CUDA error {err}")
     launch_count += 1

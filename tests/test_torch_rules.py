@@ -18,7 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "monocon_tpu")
 
 def _port_sources():
     return sorted((ROOT / "monocon_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "splat_breakdown.py"]
 
 
 def _imported_modules(path):

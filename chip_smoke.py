@@ -23,7 +23,19 @@ result line:
 5. train: one step at 64x160 on the card against the CPU, then five
    ``train_step``s at 384x1280, B=8, uint8 images; the splat kernel must
    launch twice per step;
-6. kernels line: one JSON object per hand-written kernel.
+6. eval: a synthetic KITTI val split of 256 images at 375x1242 written by
+   the port's generator, DLA-34 (random weights from a seed, center-heatmap
+   bias 0.5) saved as a reference ``.pth`` and evaluated by
+   ``MonoConEngine`` on the card (canvas 384x1248, batch 8, float32):
+   the 84-key AP dict, PNG decode ms per image, the loader's images/s, the
+   collect loop's frames/s, its wait for the loader, the AP stage's
+   seconds, the forward+decode event span share (an upper bound on the
+   card's busy share) and the busy share from a torch.profiler trace (a
+   lower bound); every image's KITTI annotations from the timed, pipelined
+   loop against the same model run with nothing overlapped; the first
+   batch's annotations card against CPU. The eval path runs no hand
+   kernel;
+7. kernels line: one JSON object per hand-written kernel.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Needs a CUDA device;
@@ -35,7 +47,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -60,6 +74,16 @@ SPLAT_TOL = 1e-6       # kernel against its plain version, max |diff|
 # bytes each, 227 KB on an H100): the wrapper must refuse them.
 TOO_MANY_N = 16384
 HEAD_ATOL = 1e-3       # continuous head maps, card against CPU (float32)
+EVAL_IMAGES = 256
+EVAL_IMAGE_HW = (375, 1242)   # KITTI's image size; the default canvas is
+                              # 384x1248 (TPU.PAD_HW)
+HEATMAP_BIAS = 0.5     # most top-30 scores clear the 0.4 threshold
+DECODE_FILES = 32      # PNGs timed one after another, one thread
+ANNO_TOL = dict(rtol=1e-3, atol=1e-3)   # KITTI annotations, card vs CPU
+ANNO_FIELDS = ("bbox", "location", "dimensions", "rotation_y", "score")
+# The pipelined collect loop against the unpipelined one: the same model
+# and inputs on the same card, so only a race could differ.
+PIPELINE_TOL = dict(rtol=1e-6, atol=1e-6)
 
 
 def log(msg: str) -> None:
@@ -531,6 +555,326 @@ def phase_train() -> int:
     return launches
 
 
+def check_ap(ap: dict) -> None:
+    """63 ``img_bbox/KITTI/...`` and 21 ``img_bbox2d/KITTI/...`` values, all
+    finite."""
+    n3 = sum(k.startswith("img_bbox/KITTI/") for k in ap)
+    n2 = sum(k.startswith("img_bbox2d/KITTI/") for k in ap)
+    if (len(ap), n3, n2) != (84, 63, 21):
+        raise AssertionError(f"eval: {len(ap)} AP keys ({n3} 3D, {n2} 2D), "
+                             "expected 84 (63, 21)")
+    if not all(np.isfinite(v) for v in ap.values()):
+        raise AssertionError(f"eval: non-finite AP values: {ap}")
+
+
+def match_annos(got: dict, want: dict, margin: float, tie: bool,
+                threshold: float, what: str) -> "tuple[int, int]":
+    """Pair the card's KITTI annotations of one image with the CPU's: the
+    same name and every field within ``ANNO_TOL``. A detection on one side
+    only is allowed when its score lies within ``margin`` of the score
+    threshold, or once per side when the CPU's 30th and 31st heatmap peaks
+    tie within the card/CPU difference (``tie``). Returns (matched, on
+    one side only)."""
+    used, matched, alone = set(), 0, {"card": 0, "CPU": 0}
+
+    def allowed(score, side):
+        if abs(float(score) - threshold) <= margin:
+            return True
+        alone[side] += 1
+        return tie and alone[side] == 1
+
+    for i, name in enumerate(want["name"]):
+        hit = next((j for j in range(len(got["name"])) if j not in used
+                    and got["name"][j] == name
+                    and all(np.allclose(got[f][j], want[f][i], **ANNO_TOL)
+                            for f in ANNO_FIELDS)), None)
+        if hit is None:
+            if not allowed(want["score"][i], "CPU"):
+                raise AssertionError(
+                    f"eval: {what}: CPU detection {i} ({name}, score "
+                    f"{want['score'][i]}) has no match on the card")
+            continue
+        used.add(hit)
+        matched += 1
+    for j in range(len(got["name"])):
+        if j not in used and not allowed(got["score"][j], "card"):
+            raise AssertionError(
+                f"eval: {what}: card detection {j} ({got['name'][j]}, score "
+                f"{got['score'][j]}) has no match on the CPU")
+    return matched, len(want["name"]) + len(got["name"]) - 2 * matched
+
+
+def first_batch(loader):
+    for batch in loader:
+        return batch
+    raise AssertionError("eval: the loader yielded no batch")
+
+
+def compare_first_batch(engine, cpu_engine) -> None:
+    """The first batch through the card's engine and the CPU's, from the
+    same ``.pth``: the KITTI annotations, one by one."""
+    import torch
+
+    from monocon_tpu_torch.data.loader import use_on_current_stream
+    from monocon_tpu_torch.engine.engine import TEST_SCORE_THRESHOLD
+    from monocon_tpu_torch.ops.heatmap import local_maximum, topk_from_heatmap
+    from monocon_tpu_torch.ops.image_norm import normalize_if_raw
+
+    batch_g, batch_c = first_batch(engine.test_loader), first_batch(
+        cpu_engine.test_loader)
+    maps = []
+    for eng, batch in ((engine, batch_g), (cpu_engine, batch_c)):
+        dev = use_on_current_stream(batch)
+        with torch.no_grad():
+            pred = eng.model(normalize_if_raw(dev["img"], dev["img_hw"]))
+        heat = pred["center_heatmap_pred"].cpu()
+        # The thresholded score: peak times exp(-depth uncertainty).
+        maps.append((heat, heat * torch.exp(-pred["depth_pred"][..., 1:2]).cpu()))
+    (heat_g, score_g), (heat_c, score_c) = maps
+    heat_err = float((heat_g - heat_c).abs().max())
+    margin = 2 * float((score_g - score_c).abs().max())
+    peaks = topk_from_heatmap(local_maximum(heat_c), k=31)[0]
+    ties = (peaks[:, 29] - peaks[:, 30]) <= 2 * heat_err
+
+    got, want = engine.run_eval_batch(batch_g), cpu_engine.run_eval_batch(
+        batch_c)
+    matched = alone = 0
+    for kind in ("img_bbox", "img_bbox2d"):
+        for i, (g, w) in enumerate(zip(got[kind], want[kind], strict=True)):
+            m, a = match_annos(g, w, margin, bool(ties[i]),
+                               TEST_SCORE_THRESHOLD, f"{kind} image {i}")
+            matched += m
+            alone += a
+    if matched == 0:
+        raise AssertionError("eval: no detection to compare in the first batch")
+    log(f"[eval] first batch of {len(batch_g['p2'])}, card against CPU: "
+        f"{matched} KITTI annotations matched (rtol 1e-3, atol 1e-3), "
+        f"{alone} on one side only (score within {margin:.3g} of "
+        f"{TEST_SCORE_THRESHOLD}, or a tie at the 30th peak); heatmap "
+        f"max|diff| {heat_err:.3g}")
+
+
+class LoaderWait:
+    """Iterates a loader and adds up the seconds its consumer waits for
+    each next batch."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.seconds = 0.0
+
+    def __iter__(self):
+        batches = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            self.seconds += time.perf_counter() - t0
+            if batch is None:
+                return
+            yield batch
+
+
+def traced_busy_share(fn) -> "tuple[float | None, float, int]":
+    """Run ``fn()`` under torch.profiler. Returns the share of its wall time
+    in which the card ran a kernel or a copy (the union of the trace's
+    device intervals over the host's wall time; None when the trace holds
+    no device activity), the wall seconds, and the number of device
+    intervals. The tracing slows the host, so the share is a lower bound
+    on the untraced run's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, covered = 0.0, float("-inf")
+    for start, end in spans:
+        if end > covered:
+            busy_us += end - max(start, covered)
+            covered = end
+    share = busy_us / 1e6 / wall_s if spans else None
+    return share, wall_s, len(spans)
+
+
+def unpipelined_annos(engine) -> dict:
+    """Every test image through the engine's model on the card with
+    nothing overlapped: batches from a loader on the CPU (no pinned ring,
+    no copy stream), sent with a plain ``.to``, and each batch's result
+    read back with a plain ``.cpu()`` before the next is sent."""
+    import torch
+
+    from monocon_tpu_torch.data.loader import DataLoader
+    from monocon_tpu_torch.engine.engine import TEST_SCORE_THRESHOLD
+    from monocon_tpu_torch.ops.decode import decode_predictions
+    from monocon_tpu_torch.ops.image_norm import normalize_if_raw
+    from monocon_tpu_torch.utils.convert import (
+        convert_to_kitti_2d,
+        convert_to_kitti_3d,
+        split_batch_detections,
+    )
+
+    timed = engine.test_loader
+    loader = DataLoader(engine.test_dataset, "cpu",
+                        batch_size=timed.batch_size, shuffle=False,
+                        num_workers=timed.num_workers, pad_hw=timed.pad_hw)
+    out = {"img_bbox": [], "img_bbox2d": []}
+    for batch in loader:
+        with torch.no_grad():
+            image = normalize_if_raw(batch["img"].to(engine.device),
+                                     batch["img_hw"].to(engine.device))
+            decoded = decode_predictions(
+                engine.model(image), batch["p2"].to(engine.device),
+                (image.shape[1], image.shape[2]))
+        per_image = split_batch_detections(
+            {k: v.cpu().numpy() for k, v in decoded.items()},
+            TEST_SCORE_THRESHOLD)
+        out["img_bbox"] += convert_to_kitti_3d(
+            per_image, batch["img_metas"], batch["calib"])
+        out["img_bbox2d"] += convert_to_kitti_2d(per_image,
+                                                 batch["img_metas"])
+    return out
+
+
+def check_same_annos(got: dict, want: dict) -> "tuple[int, float]":
+    """The timed loop's KITTI annotations against the unpipelined run's,
+    image by image: the same images in the same order, the same names,
+    every field within ``PIPELINE_TOL``. Returns (annotations compared,
+    the largest absolute difference)."""
+    count, worst = 0, 0.0
+    for kind in ("img_bbox", "img_bbox2d"):
+        if len(got[kind]) != len(want[kind]):
+            raise AssertionError(
+                f"eval: {kind}: {len(got[kind])} images from the timed loop, "
+                f"{len(want[kind])} unpipelined")
+        for i, (g, w) in enumerate(zip(got[kind], want[kind])):
+            if (list(g["name"]) != list(w["name"])
+                    or not np.array_equal(g["sample_idx"], w["sample_idx"])):
+                raise AssertionError(
+                    f"eval: {kind} image {i}: the timed loop gave "
+                    f"{list(g['name'])} for samples {g['sample_idx']}, the "
+                    f"unpipelined run {list(w['name'])} for {w['sample_idx']}")
+            for f in ANNO_FIELDS:
+                if not np.allclose(g[f], w[f], **PIPELINE_TOL):
+                    raise AssertionError(
+                        f"eval: {kind} image {i} {f}: the timed loop gave "
+                        f"{g[f]}, the unpipelined run {w[f]}")
+                if len(w[f]):
+                    worst = max(worst, float(np.max(np.abs(
+                        np.asarray(g[f], np.float64) - w[f]))))
+            count += len(w["name"])
+    return count, worst
+
+
+def phase_eval(tmp: Path) -> None:
+    import torch
+
+    from monocon_tpu_torch import create_detector
+    from monocon_tpu_torch.config import get_default_cfg
+    from monocon_tpu_torch.data.loader import use_on_current_stream
+    from monocon_tpu_torch.data.png import read_png
+    from monocon_tpu_torch.data.synthetic import generate_kitti_dataset
+    from monocon_tpu_torch.engine.engine import EVAL_CLASSES, MonoConEngine
+    from monocon_tpu_torch.ops import splat
+
+    root = tmp / "kitti"
+    t0 = time.perf_counter()
+    generate_kitti_dataset(str(root), num_train=0, num_val=EVAL_IMAGES,
+                           image_hw=EVAL_IMAGE_HW, seed=SEED)
+    log(f"[eval] wrote {EVAL_IMAGES} synthetic val images at "
+        f"{EVAL_IMAGE_HW[0]}x{EVAL_IMAGE_HW[1]} in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    model = create_detector(34, generator=torch.Generator().manual_seed(SEED),
+                            device="cpu")
+    with torch.no_grad():
+        model.head.heatmap_head[3].bias.fill_(HEATMAP_BIAS)
+    pth = tmp / "model.pth"
+    torch.save({"state_dict": {"model": model.state_dict()}}, pth)
+    cfg = get_default_cfg()
+    cfg.DATA.ROOT = str(root)
+    engine = MonoConEngine(cfg, is_test=True)
+    engine.load_checkpoint(str(pth))
+    log(f"[eval] MonoConEngine on {engine.device}: batch "
+        f"{cfg.DATA.BATCH_SIZE}, canvas {cfg.TPU.PAD_HW}, "
+        f"{cfg.TPU.COMPUTE_DTYPE}, {cfg.TPU.IMAGE_TRANSPORT} transport, "
+        f"{cfg.DATA.NUM_WORKERS} loader threads")
+
+    splat.launch_count = 0
+    check_ap(engine.evaluate(verbose=False))   # warm-up
+    paths = [engine.test_dataset.image_path(i) for i in range(DECODE_FILES)]
+    t0 = time.perf_counter()
+    for path in paths:
+        read_png(path)
+    decode_ms = (time.perf_counter() - t0) / len(paths) * 1e3
+
+    t0 = time.perf_counter()
+    images = 0
+    for batch in engine.test_loader:
+        use_on_current_stream(batch)
+        images += len(batch["p2"])
+    torch.cuda.synchronize()
+    loader_ips = images / (time.perf_counter() - t0)
+
+    device_ms = []
+    loader = engine.test_loader
+    engine.test_loader = waited = LoaderWait(loader)
+    t0 = time.perf_counter()
+    container = engine.collect_detections(device_ms)
+    collect_s = time.perf_counter() - t0
+    engine.test_loader = loader
+    t0 = time.perf_counter()
+    ap = engine.test_dataset.evaluate(container, eval_classes=EVAL_CLASSES,
+                                      verbose=False)
+    ap_s = time.perf_counter() - t0
+    check_ap(ap)
+    if splat.launch_count:
+        raise AssertionError("eval: the splat kernel ran on the eval path")
+    with_dets = sum(len(a["name"]) > 0 for a in container["img_bbox"])
+    if len(container["img_bbox"]) != EVAL_IMAGES or with_dets == 0:
+        raise AssertionError(f"eval: {len(container['img_bbox'])} images, "
+                             f"{with_dets} with a detection")
+    log(f"[eval] AP dict: 84 keys, all finite; {with_dets} of {EVAL_IMAGES} "
+        f"images have a 3D detection; Car 3D AP40 moderate (strict) "
+        f"{ap['img_bbox/KITTI/Car_3D_AP40_moderate_strict']}")
+    log(f"[eval] PNG decode: {decode_ms:.3f} ms per image (one thread, "
+        f"{len(paths)} files)")
+    log(f"[eval] loader alone (decode, collate, pinned H2D): "
+        f"{loader_ips:.3f} images/s")
+    log(f"[eval] collect loop (loader, H2D, forward, decode, D2H, "
+        f"conversion): {EVAL_IMAGES / collect_s:.3f} frames/s, "
+        f"{collect_s:.3f} s for {EVAL_IMAGES} images")
+    log(f"[eval] collect loop waited {waited.seconds:.3f} s "
+        f"({waited.seconds / collect_s:.1%} of it) for the loader's next "
+        "batch")
+    log(f"[eval] AP stage: {ap_s:.3f} s")
+    log(f"[eval] forward+decode event span share "
+        f"{sum(device_ms) / 1e3 / collect_s:.1%} of the collect loop's wall "
+        f"time ({sum(device_ms):.3f} ms over {len(device_ms)} batches, CUDA "
+        "events; an upper bound on the card's busy share, since a span "
+        "also holds the card's waits for launches)")
+
+    compared, worst = check_same_annos(container, unpipelined_annos(engine))
+    log(f"[eval] timed collect loop against the unpipelined run, all "
+        f"{len(container['img_bbox'])} images: {compared} KITTI annotations "
+        f"equal within rtol 1e-6 / atol 1e-6, max |diff| {worst:.3g}")
+
+    share, traced_s, spans = traced_busy_share(engine.collect_detections)
+    busy = "not measured (no device activity in the trace)" if share is None \
+        else f"{share:.1%}"
+    log(f"[eval] card busy share from a torch.profiler trace of the collect "
+        f"loop: {busy} ({spans} device intervals, {traced_s:.3f} s traced "
+        "wall; a lower bound, the tracing slows the host)")
+
+    cpu_engine = MonoConEngine(cfg, is_test=True, device="cpu")
+    cpu_engine.load_checkpoint(str(pth))
+    compare_first_batch(engine, cpu_engine)
+
+
 def main() -> int:
     import torch
 
@@ -544,6 +888,8 @@ def main() -> int:
     entry = phase_kernel(rng)
     phase_serve()
     entry["launches"] = phase_train()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_eval(Path(tmp))
     print(card, flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

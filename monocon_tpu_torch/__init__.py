@@ -2,9 +2,10 @@
 for the NVIDIA H100.
 
 A port of the JAX package ``monocon_tpu``, module for module: the same
-model, targets, losses, decode and optimizer, held against the JAX package
-by the ``tests/test_torch_*.py`` parity tests on the CPU. It imports nothing
-of ``monocon_tpu`` and nothing of JAX.
+model, targets, losses, decode and optimizer, and the evaluation path
+(``engine.engine.MonoConEngine``, ``python -m monocon_tpu_torch.test``),
+held against the JAX package by the ``tests/test_torch_*.py`` parity tests
+on the CPU. It imports nothing of ``monocon_tpu`` and nothing of JAX.
 
 Entry points take a ``device`` argument and run on ``cuda`` unless the
 caller passes ``device="cpu"``; without CUDA and without an explicit device

@@ -1,0 +1,183 @@
+"""Configuration tree of the port.
+
+A copy of ``monocon_tpu/config/defaults.py``: the same key tree, ``TPU.*``
+included, so that the files in ``configs/`` load in both packages. PyYAML
+is imported only where a file is read or written, so that
+:func:`get_default_cfg` works without it. :func:`check_port_support`
+refuses the settings the port does not run yet.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict
+
+
+class ConfigNode(dict):
+    """A dict with attribute access and recursive merge, yacs-compatible
+    enough for this project's config files."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    def clone(self) -> "ConfigNode":
+        return copy.deepcopy(self)
+
+    def merge_from_dict(self, other: Dict[str, Any]) -> None:
+        for k, v in other.items():
+            if isinstance(v, dict) and isinstance(self.get(k), ConfigNode):
+                self[k].merge_from_dict(v)
+            elif isinstance(v, dict):
+                self[k] = _to_node(v)
+            else:
+                self[k] = v
+
+    def merge_from_file(self, path: str) -> None:
+        import yaml
+
+        with open(path) as f:
+            data = yaml.safe_load(f)
+        if data:
+            self.merge_from_dict(data)
+
+    def to_plain_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for k, v in self.items():
+            out[k] = v.to_plain_dict() if isinstance(v, ConfigNode) else v
+        return out
+
+    def dump(self) -> str:
+        import yaml
+
+        return yaml.safe_dump(self.to_plain_dict(), default_flow_style=False)
+
+
+def _to_node(d: Dict[str, Any]) -> ConfigNode:
+    node = ConfigNode()
+    for k, v in d.items():
+        node[k] = _to_node(v) if isinstance(v, dict) else v
+    return node
+
+
+_DEFAULTS: Dict[str, Any] = {
+    "VERSION": "tpu-v0.1.0",
+    "DESCRIPTION": "MonoCon-TPU Default Configuration",
+    "OUTPUT_DIR": "",
+    "SEED": -1,
+    "GPU_ID": 0,  # the test CLI's --gpu_id picks the card instead
+    "USE_BENCHMARK": True,  # kept for config-file compatibility
+    "DATA": {
+        "ROOT": "/data/kitti",
+        "BATCH_SIZE": 8,
+        "NUM_WORKERS": 4,  # loader threads decoding PNGs
+        "TRAIN_SPLIT": "train",
+        "TEST_SPLIT": "val",
+        "CROP_HW": [320, 960],  # train-time RandomCrop3D size
+        "AUGMENT": True,  # train-time augmentation on or off
+        # The JAX package's decoded-uint8 image cache ('' off); the port
+        # refuses any other value (check_port_support).
+        "IMAGE_CACHE": "",
+        "FILTER": {
+            "MIN_HEIGHT": 25,
+            "MIN_DEPTH": 2,
+            "MAX_DEPTH": 65,
+            "MAX_TRUNCATION": 0.5,
+            "MAX_OCCLUSION": 2,
+        },
+    },
+    "MODEL": {
+        "BACKBONE": {
+            "NUM_LAYERS": 34,
+            "IMAGENET_PRETRAINED": True,
+            # Local path to a DLA ImageNet .pth (training only).
+            "PRETRAINED_PATH": "",
+        },
+        "HEAD": {
+            "NUM_CLASSES": 3,
+            "MAX_OBJS": 30,
+        },
+    },
+    "SOLVER": {
+        "OPTIM": {
+            "LR": 2.25e-4,
+            "WEIGHT_DECAY": 1e-5,
+            "NUM_EPOCHS": 200,
+        },
+        "SCHEDULER": {
+            "ENABLE": True,
+        },
+        "CLIP_GRAD": {
+            "ENABLE": True,
+            "NORM_TYPE": 2.0,
+            "MAX_NORM": 35,
+        },
+    },
+    "PERIOD": {
+        "EVAL_PERIOD": 10,
+        "LOG_PERIOD": 50,
+        "CKPT_PERIOD_STEPS": 0,  # mid-epoch checkpoints, in steps (0 = off)
+    },
+    # The JAX package's accelerator knobs, under the same name so that one
+    # config file serves both packages. The port reads PAD_HW,
+    # IMAGE_TRANSPORT and PREFETCH_BATCHES, and refuses what it does not
+    # run yet (check_port_support).
+    "TPU": {
+        "COMPUTE_DTYPE": "float32",
+        "NUM_DEVICES": -1,            # -1: all devices (the port: one)
+        "GRAD_ACCUM_STEPS": 1,
+        "SPATIAL_SHARDS": 1,
+        "MULTIHOST": False,
+        "PREFETCH_BATCHES": 2,        # batches the loader prepares ahead
+        "PALLAS_TARGETS": "auto",     # the JAX package's switch only
+        "PAD_HW": [384, 1248],        # static batch canvas (null: per-batch)
+        # 'uint8': ship raw pixels, normalise on the device (4x fewer
+        # bytes to copy, exact for evaluation). 'float32': normalise on
+        # the host.
+        "IMAGE_TRANSPORT": "uint8",
+    },
+}
+
+
+def get_default_cfg() -> ConfigNode:
+    """Reference parity: ``utils/engine_utils.py:38-40``."""
+    return _to_node(_DEFAULTS)
+
+
+def load_cfg(cfg_file: str) -> ConfigNode:
+    """Reference parity: ``utils/engine_utils.py:42-46`` (merge YAML over
+    defaults, new keys allowed)."""
+    cfg = get_default_cfg()
+    cfg.merge_from_file(cfg_file)
+    return cfg
+
+
+def export_cfg(cfg: ConfigNode, save_path: str) -> None:
+    """Reference parity: ``utils/engine_utils.py:49-52``."""
+    with open(save_path, "w") as f:
+        f.write(cfg.dump())
+
+
+def check_port_support(cfg: ConfigNode) -> None:
+    """Raise ``NotImplementedError`` for settings the port does not run yet,
+    naming the ROADMAP item that will bring each."""
+    if cfg.TPU.COMPUTE_DTYPE != "float32":
+        raise NotImplementedError(
+            f"TPU.COMPUTE_DTYPE={cfg.TPU.COMPUTE_DTYPE!r}: the port computes "
+            "in float32 only; bfloat16 is ROADMAP item 14")
+    if cfg.DATA.IMAGE_CACHE:
+        raise NotImplementedError(
+            f"DATA.IMAGE_CACHE={cfg.DATA.IMAGE_CACHE!r}: the port decodes "
+            "every image from its PNG; the decoded-image cache comes with "
+            "the training loop, ROADMAP item 10")
+    if (cfg.TPU.NUM_DEVICES > 1 or cfg.TPU.SPATIAL_SHARDS > 1
+            or cfg.TPU.MULTIHOST):
+        raise NotImplementedError(
+            f"TPU.NUM_DEVICES={cfg.TPU.NUM_DEVICES}, TPU.SPATIAL_SHARDS="
+            f"{cfg.TPU.SPATIAL_SHARDS}, TPU.MULTIHOST={cfg.TPU.MULTIHOST}: "
+            "the port runs on one device; multi-GPU is ROADMAP item 16")

@@ -16,18 +16,16 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from ..utils.native_build import build_library
+
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "splat.cu"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 # The output tile one block of the kernel owns: channels x rows x columns.
 TILE_C, TILE_H, TILE_W = 5, 32, 32
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -57,22 +55,7 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile ``csrc/splat.cu`` into a shared library (once per hash of
     the source and the flags) and return its path."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libsplat_{digest}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                       check=True)
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib_path
+    return build_library(SOURCE, _nvcc(), NVCC_FLAGS)
 
 
 def load() -> ctypes.CDLL:

@@ -1,0 +1,71 @@
+"""Evaluate a MonoCon checkpoint on KITTI with the port, on the card.
+
+    python -m monocon_tpu_torch.test --checkpoint_file model.pth \\
+        --data_root /data/kitti --evaluate
+
+The flags of the root ``test.py``: --config_file, --checkpoint_file (a
+reference-format ``.pth``; an Orbax directory of the JAX package must be
+exported first with ``scripts/export_torch_ckpt.py``), --data_root,
+--gpu_id (runs on ``cuda:<gpu_id>``), --evaluate, --visualize, --save_dir.
+``--device`` names another device, e.g. ``cpu``; without it and without a
+card the command fails. ``--visualize`` is refused: the visualizer draws
+with an image library that the card's machine does not have (ROADMAP item
+12).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+
+def parse_args():
+    parser = argparse.ArgumentParser(description="MonoCon evaluation "
+                                     "(PyTorch port)")
+    parser.add_argument("--config_file", type=str, default=None)
+    parser.add_argument("--checkpoint_file", type=str, required=True,
+                        help="reference-format .pth")
+    parser.add_argument("--data_root", type=str, default=None)
+    parser.add_argument("--gpu_id", type=int, default=0,
+                        help="the card to run on, cuda:<gpu_id>")
+    parser.add_argument("--device", type=str, default=None,
+                        help="run on this device instead, e.g. cpu")
+    parser.add_argument("--evaluate", action="store_true")
+    parser.add_argument("--visualize", action="store_true")
+    parser.add_argument("--save_dir", type=str, default="./vis_results")
+    return parser.parse_args()
+
+
+def main() -> int:
+    args = parse_args()
+    if args.visualize:
+        print("--visualize is not ported: the visualizer needs an image "
+              "library for drawing and video (ROADMAP item 12)",
+              file=sys.stderr)
+        return 2
+
+    from .config import get_default_cfg, load_cfg
+    from .device import resolve_device
+    from .engine.engine import MonoConEngine
+
+    if args.device is not None:
+        device = torch.device(args.device)
+    else:
+        resolve_device()  # raises without a card
+        device = torch.device("cuda", args.gpu_id)
+    cfg = load_cfg(args.config_file) if args.config_file else get_default_cfg()
+    if args.data_root:
+        cfg.DATA.ROOT = args.data_root
+
+    engine = MonoConEngine(cfg, is_test=True, device=device)
+    engine.load_checkpoint(args.checkpoint_file)
+    print(f"Checkpoint '{args.checkpoint_file}' loaded.", flush=True)
+    if args.evaluate:
+        engine.evaluate()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

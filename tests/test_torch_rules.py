@@ -62,3 +62,47 @@ def test_chip_smoke_fails_without_a_card(alone, tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_test_cli_needs_a_card_unless_told(tmp_path):
+    """With no ``--device`` and no CUDA device the CLI fails before it
+    reads anything."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-m", "monocon_tpu_torch.test", "--checkpoint_file",
+         str(tmp_path / "model.pth"), "--data_root", str(tmp_path),
+         "--evaluate"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+
+
+# The card's machine has no OpenCV, no PIL and no PyYAML: with each import
+# refused, the evaluation path imports, and a synthetic tree is written and
+# read back through the dataset.
+WITHOUT_IMAGE_LIBRARIES = """
+import sys
+sys.modules["cv2"] = sys.modules["yaml"] = sys.modules["PIL"] = None
+import monocon_tpu_torch.engine.engine
+import monocon_tpu_torch.test
+from monocon_tpu_torch.config import get_default_cfg
+from monocon_tpu_torch.data.monocon_dataset import MonoConDataset
+from monocon_tpu_torch.data.synthetic import generate_kitti_dataset
+get_default_cfg()
+generate_kitti_dataset(sys.argv[1], num_train=0, num_val=2,
+                       image_hw=(48, 96), seed=0)
+ds = MonoConDataset(sys.argv[1], "val")
+sample = ds.get_sample(1)
+assert sample["img"].shape == (64, 96, 3), sample["img"].shape
+assert len(ds.collect_gt_annos()) == 2
+print("read", len(ds), "images")
+"""
+
+
+def test_eval_path_needs_no_image_library(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", WITHOUT_IMAGE_LIBRARIES, str(tmp_path)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "read 2 images" in proc.stdout

@@ -56,6 +56,33 @@ def port_detector(variables, dtype=torch.float32):
     return model.to(dtype)
 
 
+def assert_same(a, b, path="") -> None:
+    """``a`` and ``b`` are equal all the way down: dicts, sequences, numpy
+    arrays (same dtype and values), tensors (as numpy), objects (by their
+    attributes) and scalars."""
+    if isinstance(a, torch.Tensor):
+        a = a.numpy()
+    if isinstance(b, torch.Tensor):
+        b = b.numpy()
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and a.keys() == b.keys(), (path, a, b)
+        for k in a:
+            assert_same(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        assert isinstance(b, (list, tuple)) and len(a) == len(b), (path, a, b)
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray) and a.dtype == b.dtype, (
+            path, getattr(b, "dtype", type(b)), a.dtype)
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    elif hasattr(a, "__dict__"):
+        assert type(a).__name__ == type(b).__name__, (path, a, b)
+        assert_same(vars(a), vars(b), path)
+    else:
+        assert a == b, (path, a, b)
+
+
 def jax_x64_tree(tree):
     """numpy tree -> float64 jnp tree (call inside jax.enable_x64)."""
     import jax

@@ -10,9 +10,9 @@ result line:
    TF32 off for convolutions and matrix products;
 2. build: compiles ``monocon_tpu_torch/csrc/splat.cu`` with nvcc;
 3. kernel vs plain: the splat kernel against its plain PyTorch version on
-   the card, on the train step's own inputs at 384x1280 (B=8, feature map
-   96x320: C=3 N=30 and C=9 N=270), on dense random instances at the same
-   shapes and on edge cases (boxes on each side of a tile border, ragged
+   the card, on the isolated train step's own inputs at 384x1280 (B=8,
+   feature map 96x320: C=3 N=30 and C=9 N=270), timed, on dense random
+   instances at the same shapes and on edge cases (boxes on each side of a tile border, ragged
    W and H, N above one cull round, N above 48 KB of shared list, one
    channel, N=0, radius 0, an all-invalid element), and an N past the
    shared list must be refused; then every target of one train batch,
@@ -35,7 +35,32 @@ result line:
    loop against the same model run with nothing overlapped; the first
    batch's annotations card against CPU. The eval path runs no hand
    kernel;
-7. kernels line: one JSON object per hand-written kernel.
+7. train loop: a synthetic KITTI tree of 64 train and 16 val images at
+   375x1242; DLA-34 at batch 8 on the 384x1248 canvas, 320x960 crops,
+   the default augmentations, uint8 transport, float32:
+   A, one epoch through ``python -m monocon_tpu_torch.train
+   --deterministic`` in a subprocess (a checkpoint every 4 steps, an
+   evaluation after the epoch); B, the same in this process through
+   ``MonoConEngine``, cut after the step-4 checkpoint; C, a fresh engine
+   with another SEED that resumes B's checkpoint and finishes. C's final
+   ``state.pth`` (weights, AdamW state, schedule) and loss history must
+   equal A's bit for bit (deterministic algorithms, cuBLAS workspace set
+   before any CUDA use); the splat kernel launches twice per step; every
+   loss is finite; both evaluations give 84 finite AP keys. Then D, two
+   epochs through ``MonoConEngine.train()`` with the default
+   (non-deterministic) algorithms: ms/step and images/s of epoch 2 (host
+   clock), epoch 1 (cuDNN's first calls) apart, the loop's wait for the
+   loader, peak device memory, a checkpoint's save seconds and bytes; the
+   augmented loader alone (4 threads); the splat kernel on the two calls
+   of one of its augmented batches (feature map 96x312), against its
+   plain version and timed; and ``PhotometricDistortion`` ms per image
+   (one thread). ``loop_breakdown.py`` times the loop against the same
+   engine with no loader thread at work, over more epochs;
+8. kernels line: one JSON object per hand-written kernel. ``launches`` is
+   the count of run D, ``launches_by_path`` that of each path; ``ms``,
+   ``plain_ms``, ``bound_ms`` and ``per_call`` are those of run D's
+   batch (96x312), ``per_call_train_step`` those of the isolated step
+   (96x320).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Needs a CUDA device;
@@ -44,7 +69,9 @@ without one it exits 1 before any phase.
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -84,6 +111,16 @@ ANNO_FIELDS = ("bbox", "location", "dimensions", "rotation_y", "score")
 # The pipelined collect loop against the unpipelined one: the same model
 # and inputs on the same card, so only a race could differ.
 PIPELINE_TOL = dict(rtol=1e-6, atol=1e-6)
+LOOP_TRAIN_IMAGES, LOOP_VAL_IMAGES = 64, 16
+LOOP_CKPT_STEPS = 4    # run B stops after this step's checkpoint
+LOOP_STEPS = LOOP_TRAIN_IMAGES // TRAIN_BATCH
+LOOP_RESUME_SEED = 7   # run C starts with this SEED and must adopt 0
+LOOP_TIMED_EPOCHS = 2  # run D: epoch 1 warms up, epoch 2 is timed
+PHOTOMETRIC_IMAGES = 16
+TRAIN_CLI_TIMEOUT_S = 600
+# cuBLAS reads it when it creates its first handle: set before any CUDA
+# use, so that the deterministic runs can take deterministic products.
+CUBLAS_WORKSPACE = ":4096:8"
 
 
 def log(msg: str) -> None:
@@ -312,38 +349,36 @@ def capture_splat_inputs(batch, feat_hw, pad_hw):
     return out, calls
 
 
-def phase_kernel(rng) -> dict:
-    """The kernel against its plain version; returns the kernels-line
-    entry (without ``launches``)."""
+def check_splat(args, c: int, h: int, w: int, what: str):
+    """The kernel against its plain version on one call's arguments;
+    returns the kernel's output and the largest |difference|."""
     import torch
 
     from monocon_tpu_torch.ops import splat
-    from monocon_tpu_torch.ops.targets import generate_targets
 
-    worst = 0.0
+    got = splat.splat_max_heatmap_cuda(*args, c, h, w)
+    want = splat.splat_max_heatmap_plain(*args, c, h, w)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    log(f"[kernel] {what}: B={args[1].shape[0]} N={args[1].shape[1]} "
+        f"C={c} {h}x{w}: max|kernel - plain| = {err:.3g}")
+    if not err <= SPLAT_TOL:
+        raise AssertionError(f"splat kernel disagrees on {what}: {err}")
+    return got, err
 
-    def check(args, c, h, w, what):
-        nonlocal worst
-        got = splat.splat_max_heatmap_cuda(*args, c, h, w)
-        want = splat.splat_max_heatmap_plain(*args, c, h, w)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max()) if got.numel() else 0.0
-        log(f"[kernel] {what}: B={args[1].shape[0]} N={args[1].shape[1]} "
-            f"C={c} {h}x{w}: max|kernel - plain| = {err:.3g}")
-        if not err <= SPLAT_TOL:
-            raise AssertionError(f"splat kernel disagrees on {what}: {err}")
-        worst = max(worst, err)
-        return got
 
-    # The main path's own inputs: one train batch's two splat calls.
-    batch = train_batch(np.random.default_rng(SEED + 1), TRAIN_BATCH, PAD_HW,
-                        DEVICE)
-    targets_gpu, calls = capture_splat_inputs(batch, FEAT_HW, PAD_HW)
+def time_splat_calls(calls, what: str) -> "list[dict]":
+    """Checks each of a batch's two captured splat calls (center, then
+    keypoint heatmap) against the plain version and times it; one dict
+    per call."""
+    from monocon_tpu_torch.ops import splat
+
     if len(calls) != 2:
-        raise AssertionError(f"expected 2 splat calls, saw {len(calls)}")
+        raise AssertionError(f"{what}: expected 2 splat calls, saw "
+                             f"{len(calls)}")
     shapes = []
     for name, (*args, c, h, w) in zip(("center", "keypoint"), calls):
-        check(args, c, h, w, f"main path, {name} heatmap")
+        _, err = check_splat(args, c, h, w, f"{what}, {name} heatmap")
 
         def kernel():
             splat.splat_max_heatmap_cuda(*args, c, h, w)
@@ -354,20 +389,64 @@ def phase_kernel(rng) -> dict:
         bound_ms, bound_by = splat_bound_ms(args, c, h, w)
         ms = graph_ms(kernel, 50)
         shapes.append(dict(
-            name=name, b=args[1].shape[0], n=args[1].shape[1], c=c, h=h,
-            w=w, ms=ms, plain_ms=graph_ms(plain, 5), bound_ms=bound_ms,
-            bound_by=bound_by, bound_share=bound_ms / ms,
-            host_ms=host_ms(kernel, 200)))
-        log(f"[kernel] {name}: kernel {ms:.6f} ms, plain "
+            name=name, path=what, b=args[1].shape[0], n=args[1].shape[1],
+            c=c, h=h, w=w, ms=ms, plain_ms=graph_ms(plain, 5),
+            bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / ms,
+            host_ms=host_ms(kernel, 200), max_abs_err=err))
+        log(f"[kernel] {what}, {name}: kernel {ms:.6f} ms, plain "
             f"{shapes[-1]['plain_ms']:.6f} ms (device, CUDA graph), bound "
             f"{bound_ms:.6f} ms ({bound_by}), {bound_ms / ms:.1%} of the "
             f"bound; the wrapper takes {shapes[-1]['host_ms']:.6f} ms of "
             "host time per call")
+    total = {k: sum(s[k] for s in shapes) for k in ("ms", "bound_ms")}
+    log(f"[kernel] {what}, per train step: kernel {total['ms']:.6f} ms, "
+        f"bound {total['bound_ms']:.6f} ms, "
+        f"{total['bound_ms'] / total['ms']:.1%} of the bound")
+    return shapes
+
+
+def splat_entry(shapes, worst: float) -> dict:
+    """The kernels-line entry (without ``launches``) from the two calls of
+    one train step; ``worst`` is the largest |kernel - plain| seen."""
+    total = {k: sum(s[k] for s in shapes)
+             for k in ("ms", "plain_ms", "bound_ms")}
+    return {
+        "name": "splat_max_heatmap",
+        "route": "cuda",
+        "source": "monocon_tpu_torch/csrc/splat.cu",
+        "replaces": "monocon_tpu/ops/pallas_splat.py:31",
+        "max_abs_err": worst,
+        # Per train step: the center and the keypoint call together.
+        "ms": total["ms"],
+        "plain_ms": total["plain_ms"],
+        "bound_ms": total["bound_ms"],
+        "bound_by": max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
+        "bound_share": total["bound_ms"] / total["ms"],
+        "library_ms": None,
+        "per_call": shapes,
+    }
+
+
+def phase_kernel(rng) -> "tuple[list[dict], float]":
+    """The kernel against its plain version; returns the isolated train
+    step's two timed calls and the largest |kernel - plain| seen."""
+    import torch
+
+    from monocon_tpu_torch.ops import splat
+    from monocon_tpu_torch.ops.targets import generate_targets
+
+    # The isolated train step's own inputs: one batch's two splat calls.
+    batch = train_batch(np.random.default_rng(SEED + 1), TRAIN_BATCH, PAD_HW,
+                        DEVICE)
+    targets_gpu, calls = capture_splat_inputs(batch, FEAT_HW, PAD_HW)
+    shapes = time_splat_calls(calls, "train step")
+    worst = max(s["max_abs_err"] for s in shapes)
 
     for what, (arrays, c, h, w) in splat_cases(rng, splat.TILE_H,
                                                splat.TILE_W).items():
-        got = check([torch.from_numpy(a).to(DEVICE) for a in arrays], c, h,
-                    w, what)
+        got, err = check_splat([torch.from_numpy(a).to(DEVICE)
+                                for a in arrays], c, h, w, what)
+        worst = max(worst, err)
         if what == "one element all invalid" and float(got[1].max()) != 0.0:
             raise AssertionError("an all-invalid element must splat nothing")
     too_many = [torch.from_numpy(a).to(DEVICE)
@@ -392,27 +471,7 @@ def phase_kernel(rng) -> dict:
             raise AssertionError(f"target {key} differs between card and CPU")
     log(f"[kernel] all {len(targets_cpu)} targets of a {PAD_HW[0]}x{PAD_HW[1]}"
         " batch agree, card against CPU (rtol 1e-5, atol 1e-6)")
-
-    total = {k: sum(s[k] for s in shapes)
-             for k in ("ms", "plain_ms", "bound_ms")}
-    log(f"[kernel] per train step: kernel {total['ms']:.6f} ms, bound "
-        f"{total['bound_ms']:.6f} ms, {total['bound_ms'] / total['ms']:.1%} "
-        "of the bound")
-    return {
-        "name": "splat_max_heatmap",
-        "route": "cuda",
-        "source": "monocon_tpu_torch/csrc/splat.cu",
-        "replaces": "monocon_tpu/ops/pallas_splat.py:31",
-        "max_abs_err": worst,
-        # Per train step: the center and the keypoint call together.
-        "ms": total["ms"],
-        "plain_ms": total["plain_ms"],
-        "bound_ms": total["bound_ms"],
-        "bound_by": max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
-        "bound_share": total["bound_ms"] / total["ms"],
-        "library_ms": None,
-        "per_call": shapes,
-    }
+    return shapes, worst
 
 
 def phase_serve() -> None:
@@ -656,18 +715,27 @@ def compare_first_batch(engine, cpu_engine) -> None:
 
 class LoaderWait:
     """Iterates a loader and adds up the seconds its consumer waits for
-    each next batch."""
+    each next batch; ``waits`` holds them one by one. Passes ``len`` and
+    ``set_epoch`` on."""
 
     def __init__(self, loader):
         self.loader = loader
         self.seconds = 0.0
+        self.waits = []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
 
     def __iter__(self):
         batches = iter(self.loader)
         while True:
             t0 = time.perf_counter()
             batch = next(batches, None)
-            self.seconds += time.perf_counter() - t0
+            self.waits.append(time.perf_counter() - t0)
+            self.seconds += self.waits[-1]
             if batch is None:
                 return
             yield batch
@@ -875,6 +943,279 @@ def phase_eval(tmp: Path) -> None:
     compare_first_batch(engine, cpu_engine)
 
 
+class FirstSteps:
+    """A train loader cut after its first ``n`` batches: a run that stops
+    right after the checkpoint of step ``n``."""
+
+    def __init__(self, loader, n: int):
+        self.loader, self.n = loader, n
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        batches = iter(self.loader)
+        for _ in range(self.n):
+            yield next(batches)
+
+
+def loop_cfg(root: Path, out: Path, seed: int):
+    """The configuration of the train-loop runs: the defaults (DLA-34,
+    batch 8, 384x1248 canvas, 320x960 crops, augmentation, uint8
+    transport) with one epoch, a checkpoint every LOOP_CKPT_STEPS steps,
+    an evaluation after each epoch and a progress line every 4 steps."""
+    from monocon_tpu_torch.config import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.DATA.ROOT = str(root)
+    cfg.OUTPUT_DIR = str(out)
+    cfg.SEED = seed
+    cfg.SOLVER.OPTIM.NUM_EPOCHS = 1
+    cfg.PERIOD.CKPT_PERIOD_STEPS = LOOP_CKPT_STEPS
+    cfg.PERIOD.EVAL_PERIOD = 1
+    cfg.PERIOD.LOG_PERIOD = 4
+    return cfg
+
+
+def run_train_cli(root: Path, out: Path) -> str:
+    """Run A: the train CLI in a subprocess on the card, deterministic,
+    with the settings of :func:`loop_cfg`. Returns its standard output."""
+    cmd = [sys.executable, "-m", "monocon_tpu_torch.train",
+           "--data_root", str(root), "--output_dir", str(out),
+           "--num_epochs", "1", "--deterministic", "--set", "SEED", "0",
+           "--set", "PERIOD.CKPT_PERIOD_STEPS", str(LOOP_CKPT_STEPS),
+           "--set", "PERIOD.EVAL_PERIOD", "1",
+           "--set", "PERIOD.LOG_PERIOD", "4"]
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True,
+                          timeout=TRAIN_CLI_TIMEOUT_S)
+    (out / "train_cli.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"loop: the train CLI exited {proc.returncode}:"
+                             f"\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def read_run(out: Path) -> "tuple[dict, dict, dict]":
+    """The final checkpoint of the run in ``out``: its ``state.pth``
+    container, its ``meta.json``, and the AP dict of its last evaluation
+    (from ``tf_logs/metrics.jsonl``)."""
+    import torch
+
+    final = out / "checkpoints" / "epoch_001_final"
+    container = torch.load(final / "state.pth", map_location="cpu",
+                           weights_only=True)
+    meta = json.loads((final / "meta.json").read_text())
+    evals = [json.loads(line) for line in
+             (out / "tf_logs" / "metrics.jsonl").read_text().splitlines()]
+    evals = [e for e in evals if e["tag"] == "eval"]
+    if not evals:
+        raise AssertionError(f"loop: no evaluation logged in {out}")
+    ap = {k: v for k, v in evals[-1].items() if k not in ("step", "tag")}
+    return container, meta, ap
+
+
+def tensors_differing(a, b, path="") -> "list[str]":
+    """The paths at which two nests of dicts, lists and tensors differ
+    (tensors bit for bit)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        same = (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b))
+        return [] if same else [path]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return [path]
+        return [p for k in a for p in tensors_differing(a[k], b[k],
+                                                         f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return [path]
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in tensors_differing(x, y, f"{path}[{i}]")]
+    return [] if a == b else [path]
+
+
+def check_losses(losses, what: str) -> None:
+    if not losses or not all(np.isfinite(v) for v in losses):
+        raise AssertionError(f"loop: {what}: non-finite or no losses: "
+                             f"{losses}")
+
+
+def count_launches(fn, steps: int, what: str) -> int:
+    """Run ``fn()`` with the splat kernel's count set to 0; it must launch
+    twice per train step. Returns the launches."""
+    from monocon_tpu_torch.ops import splat
+
+    splat.launch_count = 0
+    fn()
+    launches = splat.launch_count
+    if launches != 2 * steps:
+        raise AssertionError(f"loop: {what}: the splat kernel launched "
+                             f"{launches} times in {steps} steps, expected "
+                             "2 per step")
+    return launches
+
+
+def phase_train_loop(tmp: Path) -> "tuple[list[dict], dict]":
+    """Runs A-D (see the module docstring). Returns the two timed splat
+    calls of one loop batch, and the splat launches of runs B-D."""
+    import torch
+
+    from monocon_tpu_torch import MonoConEngine
+    from monocon_tpu_torch.data.loader import use_on_current_stream
+    from monocon_tpu_torch.data.png import read_png
+    from monocon_tpu_torch.data.synthetic import generate_kitti_dataset
+    from monocon_tpu_torch.data.transforms import PhotometricDistortion
+    from monocon_tpu_torch.engine.train_step import FEAT_STRIDE
+
+    root = tmp / "kitti_train"
+    t0 = time.perf_counter()
+    generate_kitti_dataset(str(root), num_train=LOOP_TRAIN_IMAGES,
+                           num_val=LOOP_VAL_IMAGES, image_hw=EVAL_IMAGE_HW,
+                           seed=SEED + 4)
+    log(f"[loop] wrote {LOOP_TRAIN_IMAGES} train and {LOOP_VAL_IMAGES} val "
+        f"synthetic images at {EVAL_IMAGE_HW[0]}x{EVAL_IMAGE_HW[1]} in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    out_a, out_b, out_d = tmp / "run_a", tmp / "run_b", tmp / "run_d"
+    t0 = time.perf_counter()
+    stdout = run_train_cli(root, out_a)
+    log(f"[loop] A: python -m monocon_tpu_torch.train --deterministic, one "
+        f"epoch of {LOOP_STEPS} steps with an evaluation, in "
+        f"{time.perf_counter() - t0:.3f} s (subprocess wall)")
+    for line in stdout.splitlines():
+        if line.startswith(("| Progress", "- Epoch Time")):
+            log(f"[loop] A: {line.strip()}")
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        engine_b = MonoConEngine(loop_cfg(root, out_b, SEED))
+        engine_b.train_loader = FirstSteps(engine_b.train_loader,
+                                           LOOP_CKPT_STEPS)
+        launches_b = count_launches(engine_b.train_one_epoch,
+                                    LOOP_CKPT_STEPS, "B")
+        check_losses(engine_b.entire_losses, "B")
+        del engine_b
+        engine_c = MonoConEngine(loop_cfg(root, out_b, LOOP_RESUME_SEED))
+        if (engine_c.epochs, engine_c._resume_step_in_epoch,
+                engine_c.cfg.SEED) != (1, LOOP_CKPT_STEPS, SEED):
+            raise AssertionError(
+                f"loop: C resumed at epoch {engine_c.epochs}, step "
+                f"{engine_c._resume_step_in_epoch}, seed {engine_c.cfg.SEED}")
+        launches_c = count_launches(engine_c.train,
+                                    LOOP_STEPS - LOOP_CKPT_STEPS, "C")
+        del engine_c
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+    (state_a, meta_a, ap_a), (state_c, meta_c, ap_c) = (read_run(out_a),
+                                                        read_run(out_b))
+    for ap in (ap_a, ap_c):
+        check_ap(ap)
+    check_losses(meta_a["entire_losses"], "A")
+    check_losses(meta_c["entire_losses"], "C")
+    differ = tensors_differing(state_c, state_a)
+    if differ:
+        raise AssertionError(f"loop: C's state.pth differs from A's at "
+                             f"{differ[:10]} ({len(differ)} entries)")
+    for key in ("entire_losses", "global_iters", "epoch", "seed",
+                "step_in_epoch"):
+        if meta_c[key] != meta_a[key]:
+            raise AssertionError(f"loop: meta.json {key}: C {meta_c[key]} "
+                                 f"against A {meta_a[key]}")
+    n_tensors = len(state_a["state_dict"]["model"]) + sum(
+        len(v) for v in state_a["state_dict"]["optimizer"]["state"].values())
+    log(f"[loop] C (resumed from B's step-{LOOP_CKPT_STEPS} checkpoint with "
+        f"SEED {LOOP_RESUME_SEED}, adopted {SEED}) equals A bit for bit: "
+        f"{n_tensors} tensors of weights, BN state and AdamW state, the "
+        f"schedule count {state_a['state_dict']['scheduler']['count']}, and "
+        f"the loss history of {len(meta_a['entire_losses'])} steps "
+        f"(last {meta_a['entire_losses'][-1]:.6f}); splat launches B "
+        f"{launches_b}, C {launches_c}; both evaluations 84 finite AP keys")
+    del state_a, state_c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # D: the loop as training runs it, with the default algorithms.
+    cfg = loop_cfg(root, out_d, SEED)
+    cfg.SOLVER.OPTIM.NUM_EPOCHS = LOOP_TIMED_EPOCHS
+    cfg.PERIOD.CKPT_PERIOD_STEPS = 0
+    cfg.PERIOD.EVAL_PERIOD = -1
+    cfg.PERIOD.LOG_PERIOD = LOOP_STEPS
+    engine = MonoConEngine(cfg)
+    engine.train_loader = waited = LoaderWait(engine.train_loader)
+    torch.cuda.reset_peak_memory_stats()
+    launches_d = count_launches(engine.train, LOOP_TIMED_EPOCHS * LOOP_STEPS,
+                                "D")
+    peak = torch.cuda.max_memory_allocated()
+    check_losses(engine.entire_losses, "D")
+    # Epoch 2 from the arrival of its first batch to the end of its last
+    # step (train_one_epoch reads the losses back: a synchronise).
+    epoch2_waits = waited.waits[LOOP_STEPS + 1:]
+    first_wait, waits = epoch2_waits[0], epoch2_waits[1:LOOP_STEPS]
+    loop_s = engine.epoch_times[1] - first_wait
+    log(f"[loop] D: MonoConEngine.train(), {LOOP_TIMED_EPOCHS} epochs of "
+        f"{LOOP_STEPS} steps, B={TRAIN_BATCH}, default algorithms: epoch 2 "
+        f"{loop_s * 1e3 / LOOP_STEPS:.3f} ms/step, "
+        f"{LOOP_TRAIN_IMAGES / loop_s:.3f} images/s (host clock from its "
+        f"first batch's arrival to the end of its last step; its first "
+        f"batch took {first_wait:.3f} s to come); epoch 1 (cuDNN's first "
+        f"calls) {engine.epoch_times[0]:.3f} s; splat launches {launches_d}")
+    log(f"[loop] D: epoch 2 waited {sum(waits):.3f} s for the loader's "
+        f"batches 2-{LOOP_STEPS} ({sum(waits) / loop_s:.1%} of its loop; "
+        f"longest {max(waits):.3f} s)")
+    log(f"[loop] D: max_memory_allocated {peak} bytes")
+    t0 = time.perf_counter()
+    path = Path(engine.save_checkpoint())
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in path.iterdir())
+    log(f"[loop] checkpoint save: {save_s:.3f} s, {nbytes} bytes "
+        "(state.pth and meta.json, written and synced)")
+
+    loader = waited.loader
+    loader.set_epoch(LOOP_TIMED_EPOCHS + 1)
+    first = None
+    t0 = time.perf_counter()
+    for batch in loader:
+        dev = use_on_current_stream(batch)
+        if first is None:
+            first = dev
+    torch.cuda.synchronize()
+    log(f"[loop] augmented train loader alone ({loader.num_workers} "
+        f"threads: decode, augmentation, collate, pinned H2D): "
+        f"{LOOP_TRAIN_IMAGES / (time.perf_counter() - t0):.3f} images/s "
+        f"(the loop above consumed {LOOP_TRAIN_IMAGES / loop_s:.3f})")
+
+    # The kernel on the loop's own inputs: one augmented batch's two
+    # splat calls, on the canvas the loop trains on.
+    pad_hw = tuple(first["img"].shape[1:3])
+    feat_hw = (pad_hw[0] // FEAT_STRIDE, pad_hw[1] // FEAT_STRIDE)
+    _, calls = capture_splat_inputs(first, feat_hw, pad_hw)
+    shapes = time_splat_calls(calls, "train loop")
+    del first, dev
+
+    decoded = [read_png(engine.train_dataset.image_path(i))
+               for i in range(PHOTOMETRIC_IMAGES)]
+    distort = PhotometricDistortion()
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    for img in decoded:
+        distort({"img": img}, rng)
+    log(f"[loop] PhotometricDistortion: "
+        f"{(time.perf_counter() - t0) / len(decoded) * 1e3:.3f} ms per "
+        f"{EVAL_IMAGE_HW[0]}x{EVAL_IMAGE_HW[1]} image (one thread, "
+        f"{len(decoded)} images)")
+    return shapes, {"train_loop_B": launches_b, "train_loop_C": launches_c,
+                    "train_loop_D": launches_d}
+
+
 def main() -> int:
     import torch
 
@@ -882,14 +1223,25 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     card = phase_environment()
     phase_build()
     rng = np.random.default_rng(SEED)
-    entry = phase_kernel(rng)
+    step_calls, worst = phase_kernel(rng)
     phase_serve()
-    entry["launches"] = phase_train()
+    by_path = {"train_step": phase_train()}
     with tempfile.TemporaryDirectory() as tmp:
         phase_eval(Path(tmp))
+    by_path["eval"] = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        loop_calls, loop_launches = phase_train_loop(Path(tmp))
+    by_path.update(loop_launches)
+    # The numbers of the path whose launches the line reports: run D's.
+    entry = splat_entry(loop_calls, max(
+        worst, *(s["max_abs_err"] for s in loop_calls)))
+    entry["per_call_train_step"] = step_calls
+    entry["launches"] = by_path["train_loop_D"]
+    entry["launches_by_path"] = by_path
     print(card, flush=True)
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

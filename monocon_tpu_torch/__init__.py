@@ -2,8 +2,9 @@
 for the NVIDIA H100.
 
 A port of the JAX package ``monocon_tpu``, module for module: the same
-model, targets, losses, decode and optimizer, and the evaluation path
-(``engine.engine.MonoConEngine``, ``python -m monocon_tpu_torch.test``),
+model, targets, losses, decode and optimizer, the training loop with
+checkpoints and resume, and the evaluation path (:class:`MonoConEngine`,
+``python -m monocon_tpu_torch.train``, ``python -m monocon_tpu_torch.test``),
 held against the JAX package by the ``tests/test_torch_*.py`` parity tests
 on the CPU. It imports nothing of ``monocon_tpu`` and nothing of JAX.
 
@@ -13,6 +14,7 @@ they raise (:func:`resolve_device`).
 """
 
 from .device import resolve_device
+from .engine.engine import MonoConEngine
 from .engine.train_step import compute_losses, train_step
 from .models.detector import MonoConDetector, create_detector
 from .ops.decode import decode_predictions
@@ -23,6 +25,7 @@ from .utils.weights import state_dict_from_jax
 
 __all__ = [
     "MonoConDetector",
+    "MonoConEngine",
     "OneCycleScheduler",
     "build_optimizer",
     "compute_losses",

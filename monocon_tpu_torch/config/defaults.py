@@ -2,15 +2,19 @@
 
 A copy of ``monocon_tpu/config/defaults.py``: the same key tree, ``TPU.*``
 included, so that the files in ``configs/`` load in both packages. PyYAML
-is imported only where a file is read or written, so that
-:func:`get_default_cfg` works without it. :func:`check_port_support`
+is imported only where a file is read, so that :func:`get_default_cfg` and
+:func:`export_cfg` work without it (the card's machine has none):
+:meth:`ConfigNode.dump` writes YAML itself. :func:`check_port_support`
 refuses the settings the port does not run yet.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict
+import json
+import math
+import re
+from typing import Any, Dict, List
 
 
 class ConfigNode(dict):
@@ -53,9 +57,60 @@ class ConfigNode(dict):
         return out
 
     def dump(self) -> str:
-        import yaml
+        """The tree as block-style YAML that ``yaml.safe_load`` reads back
+        equal: nested mappings, and lists and scalars of str, int, float,
+        bool and None."""
+        return "".join(line + "\n" for line in _yaml_lines(self, 0))
 
-        return yaml.safe_dump(self.to_plain_dict(), default_flow_style=False)
+
+# Plain YAML 1.1 scalars that would not read back as the same string.
+_PLAIN_KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_]*\Z")
+_YAML_WORDS = {"y", "n", "yes", "no", "on", "off", "true", "false", "null"}
+
+
+def _yaml_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        # YAML 1.1 reads a float only with a dot in its mantissa.
+        mantissa, e, exponent = text.partition("e")
+        if "." not in mantissa:
+            mantissa += ".0"
+        return mantissa + e + exponent
+    if isinstance(value, str):
+        return json.dumps(value)     # a valid YAML double-quoted scalar
+    if isinstance(value, (list, tuple)):
+        return "[" + ", ".join(_yaml_scalar(v) for v in value) + "]"
+    raise TypeError(f"cannot write {type(value).__name__} {value!r} as YAML")
+
+
+def _yaml_key(key: str) -> str:
+    key = str(key)
+    if _PLAIN_KEY.match(key) and key.lower() not in _YAML_WORDS:
+        return key
+    return json.dumps(key)
+
+
+def _yaml_lines(tree: Dict[str, Any], depth: int) -> List[str]:
+    pad = "  " * depth
+    lines = []
+    for key, value in tree.items():
+        if isinstance(value, dict) and value:
+            lines.append(f"{pad}{_yaml_key(key)}:")
+            lines.extend(_yaml_lines(value, depth + 1))
+        else:
+            text = "{}" if isinstance(value, dict) else _yaml_scalar(value)
+            lines.append(f"{pad}{_yaml_key(key)}: {text}")
+    return lines
 
 
 def _to_node(d: Dict[str, Any]) -> ConfigNode:
@@ -71,7 +126,7 @@ _DEFAULTS: Dict[str, Any] = {
     "OUTPUT_DIR": "",
     "SEED": -1,
     "GPU_ID": 0,  # the test CLI's --gpu_id picks the card instead
-    "USE_BENCHMARK": True,  # kept for config-file compatibility
+    "USE_BENCHMARK": True,  # the train CLI's cudnn.benchmark
     "DATA": {
         "ROOT": "/data/kitti",
         "BATCH_SIZE": 8,
@@ -80,8 +135,8 @@ _DEFAULTS: Dict[str, Any] = {
         "TEST_SPLIT": "val",
         "CROP_HW": [320, 960],  # train-time RandomCrop3D size
         "AUGMENT": True,  # train-time augmentation on or off
-        # The JAX package's decoded-uint8 image cache ('' off); the port
-        # refuses any other value (check_port_support).
+        # Decoded-uint8 image cache: '' off, 'auto' beside the data, or a
+        # directory (data/image_cache.py).
         "IMAGE_CACHE": "",
         "FILTER": {
             "MIN_HEIGHT": 25,
@@ -163,18 +218,33 @@ def export_cfg(cfg: ConfigNode, save_path: str) -> None:
         f.write(cfg.dump())
 
 
-def check_port_support(cfg: ConfigNode) -> None:
+# The solver the port trains with: AdamW's weight decay, the one-cycle
+# schedules and the global-norm clip at 35 are fixed (solver/schedule.py,
+# engine/train_step.py).
+_FIXED_SOLVER = {"OPTIM.WEIGHT_DECAY": 1e-5, "SCHEDULER.ENABLE": True,
+                 "CLIP_GRAD.ENABLE": True, "CLIP_GRAD.MAX_NORM": 35}
+
+
+def check_port_support(cfg: ConfigNode, training: bool = False) -> None:
     """Raise ``NotImplementedError`` for settings the port does not run yet,
-    naming the ROADMAP item that will bring each."""
+    naming the ROADMAP item that will bring each. ``training``: also the
+    settings that only training reads."""
     if cfg.TPU.COMPUTE_DTYPE != "float32":
         raise NotImplementedError(
             f"TPU.COMPUTE_DTYPE={cfg.TPU.COMPUTE_DTYPE!r}: the port computes "
             "in float32 only; bfloat16 is ROADMAP item 14")
-    if cfg.DATA.IMAGE_CACHE:
+    if training and cfg.TPU.GRAD_ACCUM_STEPS > 1:
         raise NotImplementedError(
-            f"DATA.IMAGE_CACHE={cfg.DATA.IMAGE_CACHE!r}: the port decodes "
-            "every image from its PNG; the decoded-image cache comes with "
-            "the training loop, ROADMAP item 10")
+            f"TPU.GRAD_ACCUM_STEPS={cfg.TPU.GRAD_ACCUM_STEPS}: the port takes "
+            "one optimizer step per batch; gradient accumulation is ROADMAP "
+            "item 13")
+    if training:
+        for name, want in _FIXED_SOLVER.items():
+            group, key = name.split(".")
+            if cfg.SOLVER[group][key] != want:
+                raise NotImplementedError(
+                    f"SOLVER.{name}={cfg.SOLVER[group][key]!r}: the port "
+                    f"trains with {want!r} only (ROADMAP item 10, left)")
     if (cfg.TPU.NUM_DEVICES > 1 or cfg.TPU.SPATIAL_SHARDS > 1
             or cfg.TPU.MULTIHOST):
         raise NotImplementedError(

@@ -1,10 +1,11 @@
 """KITTI mono-3D dataset base: file resolution, raw loading, GT collection.
 
 A copy of ``monocon_tpu/data/base_dataset.py`` (reference
-``dataset/base_dataset.py``), with two changes: images are read by the
-port's own PNG reader (``png.py``), bit-equal to OpenCV's, since the port
-runs where no image library is installed; and there is no decoded-image
-cache (``DATA.IMAGE_CACHE``, refused by ``config.check_port_support``). The standard KITTI 3D split ID lists
+``dataset/base_dataset.py``), except that images are read by the port's
+own PNG reader (``png.py``), bit-equal to OpenCV's, since the port runs
+where no image library is installed. The decoded-image cache
+(``DATA.IMAGE_CACHE``, ``image_cache.py``) is wired in as there. The
+standard KITTI 3D split ID lists
 (train 3712 / val 3769 / trainval 7481 / test 7518) ship as packed data in
 ``resources/kitti_splits.json.gz``; a custom ``ImageSets`` directory in the
 KITTI root takes precedence when present.
@@ -20,6 +21,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from .calib import Calibration
+from .image_cache import resolve_image_cache
 from .labels import ObjectLabels
 from .png import read_png
 
@@ -43,12 +45,16 @@ def load_split_ids(split: str, base_root: Optional[str] = None) -> List[str]:
 class KittiMono3D:
     """Resolves image/calib/label files for a split and loads raw samples."""
 
-    def __init__(self, base_root: str, split: str, pad_divisor: int = 32):
+    def __init__(self, base_root: str, split: str, pad_divisor: int = 32,
+                 image_cache: str = ""):
         assert os.path.isdir(base_root), base_root
         assert split in SPLITS, split
         self.base_root = base_root
         self.split = split
         self.pad_divisor = pad_divisor
+        # Decoded-uint8 write-through cache (cfg.DATA.IMAGE_CACHE): the PNG
+        # is decoded once, later epochs read the array back.
+        self.image_cache = resolve_image_cache(image_cache, base_root, split)
         self.sample_ids = load_split_ids(split, base_root)
         sub = "testing" if split == "test" else "training"
         self.image_dir = os.path.join(base_root, sub, "image_2")
@@ -66,7 +72,13 @@ class KittiMono3D:
 
     def load_image(self, idx: int) -> Tuple[np.ndarray, Dict[str, Any]]:
         path = self.image_path(idx)
-        rgb = read_png(path)
+        key = self.sample_ids[idx]
+        rgb = (self.image_cache.get(key)
+               if self.image_cache is not None else None)
+        if rgb is None:
+            rgb = read_png(path)
+            if self.image_cache is not None:
+                self.image_cache.put(key, rgb)
         metas = {
             "idx": idx,
             "split": self.split,

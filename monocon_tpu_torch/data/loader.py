@@ -9,13 +9,17 @@ prefetch queue, and places batches on a torch device:
   * on the CPU, the arrays become tensors that share their memory;
   * on a CUDA device, the producer thread collates each batch into one of a
     small ring of pinned host canvases and copies it with
-    ``non_blocking=True`` on a copy stream of its own. The batch carries the
-    copy's CUDA event as ``batch['ready']``: the consumer makes its stream
+    ``non_blocking=True`` on a copy stream of its own, with the batch's
+    ``label`` arrays (pinned first) for a loader made with
+    ``labels=True`` (training). The batch carries the copies' CUDA event
+    as ``batch['ready']``: the consumer makes its stream
     wait on it (:func:`use_on_current_stream`). A canvas is filled again only
     after the event of the copy that read it has completed.
 
 Unlike the JAX loader there are no padding rows: the last batch of a split
-is as short as it is.
+is as short as it is. With ``shuffle=True`` the order of each epoch is
+drawn from ``(seed, epoch)``, and each sample's augmentation from ``(seed,
+epoch, position)``, as there.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ import numpy as np
 import torch
 
 DEFAULT_PAD_HW = (384, 1248)
-# The tensors of a batch that go to the device.
+# The tensors of a batch that go to the device (and, for training, the
+# arrays of its ``label`` dict).
 DEVICE_KEYS = ("img", "img_hw", "p2")
 # Pinned canvases in the ring of the CUDA path: one being filled, one
 # being copied, one in the prefetch queue.
@@ -100,16 +105,23 @@ def collate(samples: List[Dict[str, Any]],
     return batch
 
 
-def use_on_current_stream(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The device tensors of a loader batch, ready for the current stream:
-    on CUDA the stream waits for the batch's copy, and the tensors, made on
-    the copy stream, are marked as used by this one for the allocator."""
+def use_on_current_stream(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """The device tensors of a loader batch (and its ``label`` dict, when
+    the loader moved it), ready for the current stream: on CUDA the stream
+    waits for the batch's copies, and the tensors, made on the copy
+    stream, are marked as used by this one for the allocator."""
     event = batch.get("ready")
     tensors = {k: batch[k] for k in DEVICE_KEYS}
+    label = batch.get("label")
+    if label and not isinstance(next(iter(label.values())), torch.Tensor):
+        label = None        # left on the host
+    if label is not None:
+        tensors["label"] = label
     if event is not None:
         stream = torch.cuda.current_stream(tensors["img"].device)
         stream.wait_event(event)
-        for t in tensors.values():
+        for t in (*(tensors[k] for k in DEVICE_KEYS),
+                  *(label.values() if label is not None else ())):
             t.record_stream(stream)
     return tensors
 
@@ -120,8 +132,9 @@ class DataLoader:
     Deterministic: per-epoch ordering and per-sample augmentation RNG are
     derived from (seed, epoch, sample position).
 
-    Each batch holds its ``img``, ``img_hw`` and ``p2`` as tensors on
-    ``device`` (see the module docstring), the rest as on the host.
+    Each batch holds its ``img``, ``img_hw`` and ``p2`` (with
+    ``labels=True`` also its ``label`` arrays) as tensors on ``device``
+    (see the module docstring), the rest as on the host.
     """
 
     def __init__(
@@ -134,6 +147,7 @@ class DataLoader:
         pad_hw: Optional[Tuple[int, int]] = DEFAULT_PAD_HW,
         seed: int = 0,
         prefetch_batches: int = 2,
+        labels: bool = False,
     ):
         self.dataset = dataset
         self.device = torch.device(device)
@@ -144,6 +158,7 @@ class DataLoader:
         self.pad_hw = pad_hw
         self.seed = seed
         self.prefetch_batches = max(1, prefetch_batches)
+        self.labels = labels
         self.epoch = 0
         # The pinned canvases of the CUDA path, and the event of the last
         # copy that read each.
@@ -189,17 +204,29 @@ class DataLoader:
 
     def _to_device(self, batch: Dict[str, Any], slot: int,
                    canvas: Optional[torch.Tensor]) -> None:
-        """Replace the batch's device keys by tensors on ``self.device``;
-        on CUDA the image comes from ``canvas``, which collate filled."""
+        """Replace the batch's device keys (and with ``labels`` its label
+        arrays) by tensors on ``self.device``; on CUDA the image comes from
+        ``canvas``, which collate filled."""
         host = {k: torch.from_numpy(batch[k]) for k in DEVICE_KEYS}
+        label = ({k: torch.from_numpy(v) for k, v in batch["label"].items()}
+                 if self.labels and "label" in batch else {})
         if self.device.type != "cuda":
             batch.update({k: v.to(self.device) for k, v in host.items()})
+            if label:
+                batch["label"] = {k: v.to(self.device)
+                                  for k, v in label.items()}
             return
         host["img"] = canvas
         with torch.cuda.device(self.device), \
                 torch.cuda.stream(self._copy_stream):
             batch.update({k: v.to(self.device, non_blocking=True)
                           for k, v in host.items()})
+            if label:
+                # Pinned by the caching host allocator, which reuses a
+                # block only once the copies recorded on it have completed.
+                batch["label"] = {
+                    k: v.pin_memory().to(self.device, non_blocking=True)
+                    for k, v in label.items()}
             event = torch.cuda.Event()
             event.record()
         batch["ready"] = event

@@ -20,7 +20,7 @@ from .labels import (
     shift_cam,
     yaw_global_to_local,
 )
-from .transforms import Compose, default_test_transforms
+from .transforms import Compose, default_test_transforms, default_train_transforms
 
 DEFAULT_FILTER_CONFIG = {
     "min_height": 25,
@@ -63,11 +63,10 @@ class MonoConDataset(KittiMono3D):
         super().__init__(base_root, split, **kwargs)
         self.max_objs = max_objs
         if transforms is None:
-            if split == "train":
-                raise NotImplementedError(
-                    "the training augmentations are not ported yet "
-                    "(ROADMAP item 10): pass transforms explicitly")
-            transforms = default_test_transforms()
+            transforms = (
+                default_train_transforms() if split == "train"
+                else default_test_transforms()
+            )
         self.transforms = Compose(transforms)
         cfg = dict(DEFAULT_FILTER_CONFIG)
         if filter_configs:

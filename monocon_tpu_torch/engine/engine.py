@@ -1,9 +1,21 @@
-"""The port's evaluation engine: a KITTI split, a checkpoint, the AP40 dict.
+"""MonoCon training and evaluation engine of the port.
 
-Port of the evaluation half of ``monocon_tpu/engine/engine.py``
-(``MonoConEngine(cfg, is_test=True)``: the test loader, the detector,
-``load_checkpoint``, ``evaluate``). Training (``is_test=False``) comes with
-ROADMAP item 10.
+Port of ``monocon_tpu/engine/engine.py`` (reference
+``engine/base_engine.py`` + ``engine/monocon_engine.py``): 1-based epoch
+counters, auto-resume from the latest complete checkpoint (mid-epoch ones
+included, with the interrupted run's data seed), an evaluation every
+EVAL_PERIOD epochs followed by a checkpoint, a checkpoint every
+CKPT_PERIOD_STEPS steps, console logging every LOG_PERIOD steps with
+progress bar, LR and 100-step mean, ``loss/*`` and ``eval/*`` scalars in
+``tf_logs/metrics.jsonl``, and the config exported at the start of
+training.
+
+Training runs ``train_step`` (targets with the CUDA splat kernel on the
+card, forward, 10 losses, backward, clip, AdamW) on each loader batch as
+it comes: the last batch of an epoch is as short as the split leaves it,
+where the JAX engine pads it and masks the padding out. The loss of each
+step stays on the device; the host reads them in one stacked copy on log
+steps and at the end of the epoch, never one per step.
 
 The evaluation loop keeps the card and the host working at once, as the
 JAX engine's does: batch i+1's forward is queued before batch i's
@@ -23,24 +35,39 @@ detections are converted to KITTI annotations on the host.
 from __future__ import annotations
 
 import contextlib
+import os
+import time
 from typing import Any, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
-from ..config import ConfigNode, check_port_support, get_default_cfg, load_cfg
+from ..config import (ConfigNode, check_port_support, export_cfg,
+                      get_default_cfg, load_cfg)
 from ..data.loader import DataLoader, use_on_current_stream
 from ..data.monocon_dataset import MonoConDataset
-from ..data.transforms import default_test_transforms
+from ..data.transforms import default_test_transforms, default_train_transforms
 from ..device import resolve_device
 from ..models.detector import create_detector
 from ..ops.decode import decode_predictions
 from ..ops.image_norm import normalize_if_raw
+from ..solver.schedule import build_optimizer, one_cycle_lr
 from ..utils.convert import (
     convert_to_kitti_2d,
     convert_to_kitti_3d,
     split_batch_detections,
 )
-from .checkpoint import load_weights
+from ..utils.logging_utils import (MetricsWriter, count_params, progress_bar,
+                                   tprint)
+from .checkpoint import (
+    STATE_FILE,
+    latest_checkpoint,
+    load_checkpoint,
+    load_imagenet_backbone,
+    load_weights,
+    save_checkpoint,
+)
+from .train_step import train_step
 
 TEST_SCORE_THRESHOLD = 0.4  # reference DEFAULT_TEST_CFG (monocon_heads.py:30-35)
 EVAL_CLASSES = ("Pedestrian", "Cyclist", "Car")
@@ -50,56 +77,292 @@ class MonoConEngine:
     def __init__(
         self,
         cfg: Union[str, ConfigNode, None] = None,
+        auto_resume: bool = True,
         is_test: bool = False,
         device: "str | torch.device | None" = None,
     ):
         """``device``: the card unless the caller names another (see
         :func:`resolve_device`)."""
-        if not is_test:
-            raise NotImplementedError(
-                "the port's engine evaluates only (is_test=True); the "
-                "training loop is ROADMAP item 10")
         if cfg is None:
             cfg = get_default_cfg()
         elif isinstance(cfg, str):
             cfg = load_cfg(cfg)
-        check_port_support(cfg)
+        check_port_support(cfg, training=not is_test)
         self.cfg = cfg
+        self.is_test = is_test
         self.device = resolve_device(device)
-        self.test_dataset, self.test_loader = self._build_loader()
+
+        # Counters (1-based, reference base_engine.py:35-42).
+        self.epochs = 1
+        self.global_iters = 1
+        # Steps of the current epoch already trained before a mid-epoch
+        # (CKPT_PERIOD_STEPS) resume; consumed by train_one_epoch.
+        self._resume_step_in_epoch = 0
+        self.target_epochs = cfg.SOLVER.OPTIM.NUM_EPOCHS
+        self.log_period = cfg.PERIOD.LOG_PERIOD
+        self.val_period = cfg.PERIOD.EVAL_PERIOD
+        self.ckpt_period_steps = cfg.PERIOD.CKPT_PERIOD_STEPS
+        # Per-step total loss: host floats, and the detached device scalars
+        # of steps the host has not read yet (_materialize_losses).
+        self.entire_losses: List[Any] = []
+        self.epoch_times: List[float] = []
+
+        self.train_dataset = self.train_loader = None
+        if not is_test:
+            self.train_dataset, self.train_loader = self._build_loader(True)
+        self.test_dataset, self.test_loader = self._build_loader(False)
         self.model = create_detector(
             cfg.MODEL.BACKBONE.NUM_LAYERS, cfg.MODEL.HEAD.NUM_CLASSES,
             generator=torch.Generator().manual_seed(max(cfg.SEED, 0)),
             device=self.device).eval()
 
-    def _build_loader(self):
+        self.optimizer = self.scheduler = None
+        if not is_test:
+            pretrained = cfg.MODEL.BACKBONE.PRETRAINED_PATH
+            if cfg.MODEL.BACKBONE.IMAGENET_PRETRAINED and pretrained:
+                load_imagenet_backbone(pretrained, self.model)
+                tprint(f"ImageNet backbone loaded from '{pretrained}'.")
+            self.optimizer, self.scheduler = build_optimizer(
+                self.model.parameters(), lr=cfg.SOLVER.OPTIM.LR,
+                total_steps=max(1, len(self.train_loader) * self.target_epochs))
+
+        # Output dirs + auto-resume (reference base_engine.py:57-78).
+        self.root = cfg.OUTPUT_DIR or "./outputs"
+        self.writer_dir = os.path.join(self.root, "tf_logs")
+        self.weight_dir = os.path.join(self.root, "checkpoints")
+        self.writer: Optional[MetricsWriter] = None
+        if not is_test:
+            resumed = latest_checkpoint(self.weight_dir) if auto_resume else None
+            if resumed:
+                self.load_checkpoint(resumed)
+                tprint(f"Existing checkpoint '{resumed}' is found and loaded "
+                       "automatically.")
+            os.makedirs(self.writer_dir, exist_ok=True)
+            os.makedirs(self.weight_dir, exist_ok=True)
+
+    def _build_loader(self, is_train: bool):
         cfg = self.cfg
+        split = cfg.DATA.TRAIN_SPLIT if is_train else cfg.DATA.TEST_SPLIT
         # uint8 transport defers normalization to the device: 4x fewer
         # bytes to copy.
         dev_norm = cfg.TPU.IMAGE_TRANSPORT == "uint8"
+        if is_train and split == "train" and cfg.DATA.AUGMENT:
+            transforms = default_train_transforms(tuple(cfg.DATA.CROP_HW),
+                                                  device_normalize=dev_norm)
+        else:   # evaluation, or DATA.AUGMENT false: normalize/pad only
+            transforms = default_test_transforms(device_normalize=dev_norm)
         dataset = MonoConDataset(
             base_root=cfg.DATA.ROOT,
-            split=cfg.DATA.TEST_SPLIT,
+            split=split,
             max_objs=cfg.MODEL.HEAD.MAX_OBJS,
-            transforms=default_test_transforms(device_normalize=dev_norm),
+            transforms=transforms,
             filter_configs={k.lower(): v for k, v in cfg.DATA.FILTER.items()},
+            image_cache=cfg.DATA.IMAGE_CACHE,
         )
         pad_hw = cfg.TPU.PAD_HW
         loader = DataLoader(
             dataset,
             self.device,
             batch_size=cfg.DATA.BATCH_SIZE,
-            shuffle=False,
+            shuffle=is_train,
             num_workers=cfg.DATA.NUM_WORKERS,
             pad_hw=tuple(pad_hw) if pad_hw else None,
             seed=max(cfg.SEED, 0),
             prefetch_batches=cfg.TPU.PREFETCH_BATCHES,
+            labels=is_train,
         )
         return dataset, loader
 
     def load_checkpoint(self, path: str) -> None:
-        """Load the detector's weights from a reference-format ``.pth``."""
-        load_weights(path, self.model)
+        """A checkpoint directory of a training engine resumes the run:
+        weights, optimizer, schedule, counters, loss history and the data
+        seed. A ``.pth``/``.pt``, or any checkpoint in an evaluation engine,
+        loads the detector's weights only."""
+        if self.is_test or path.endswith((".pth", ".pt")):
+            if os.path.isfile(os.path.join(path, STATE_FILE)):
+                path = os.path.join(path, STATE_FILE)
+            load_weights(path, self.model)
+            return
+        meta = load_checkpoint(path, self.model, self.optimizer,
+                               self.scheduler)
+        # Adopt the interrupted run's data seed: the loaders were built
+        # with this process's cfg.SEED, but the shuffle/augmentation
+        # stream belongs to the run being resumed (train.py randomizes
+        # SEED=-1 per process).
+        saved_seed = meta.get("seed")
+        if saved_seed is not None and int(saved_seed) != max(
+                int(self.cfg.SEED), 0):
+            tprint(f"Resuming with the checkpoint's data seed {saved_seed} "
+                   f"(this process started with SEED={self.cfg.SEED}; the "
+                   "shuffle/augmentation stream follows the original run).")
+            self.cfg.SEED = int(saved_seed)
+            for loader in (self.train_loader, self.test_loader):
+                if loader is not None:
+                    loader.seed = int(saved_seed)
+        step_in_epoch = int(meta.get("step_in_epoch", 0))
+        if step_in_epoch > 0:
+            # Taken mid-epoch: re-enter the SAME epoch and skip its trained
+            # prefix (the loader's per-epoch order is deterministic).
+            self.epochs = int(meta["epoch"])
+            self._resume_step_in_epoch = step_in_epoch
+        else:
+            self.epochs = int(meta["epoch"]) + 1
+        self.global_iters = int(meta["global_iters"])
+        # Loss/time history (reference base_engine.py:191-219), so that the
+        # moving average and the ETA continue across a resume.
+        self.entire_losses = [float(v) for v in meta.get("entire_losses", [])]
+        self.epoch_times = [float(v) for v in meta.get("epoch_times", [])]
+
+    def save_checkpoint(self, final: bool = False,
+                        step_in_epoch: int = 0) -> str:
+        """Write the run's checkpoint for the current epoch. A mid-epoch
+        save records ``step_in_epoch``, the steps of this epoch done, and
+        the ``global_iters`` of the step after them."""
+        self._materialize_losses()
+        path = save_checkpoint(
+            self.weight_dir, self.model, self.optimizer, self.scheduler,
+            self.epochs, self.global_iters + (1 if step_in_epoch else 0),
+            final=final,
+            extra={"entire_losses": self.entire_losses,
+                   "epoch_times": list(self.epoch_times),
+                   "step_in_epoch": int(step_in_epoch),
+                   # The run's data seed, from which the loader's order
+                   # and augmentation derive: a resuming process adopts it.
+                   "seed": max(int(self.cfg.SEED), 0)},
+        )
+        tprint(f"Checkpoint saved to '{path}'.")
+        return path
+
+    # ------------------------------------------------------------------
+    @property
+    def current_lr(self) -> float:
+        """The LR that the JAX engine reads from optax's injected
+        hyperparams (engine.py:270-284): that of the last optimizer step,
+        or before the first step the first step's."""
+        if self.scheduler is None:
+            return float(self.cfg.SOLVER.OPTIM.LR)
+        sched = self.scheduler
+        return one_cycle_lr(max(sched.count - 1, 0), sched.lr,
+                            sched.total_steps)
+
+    def _materialize_losses(self) -> None:
+        """Turn the device scalars in ``entire_losses`` into host floats
+        with one stacked copy."""
+        pending = [i for i, v in enumerate(self.entire_losses)
+                   if not isinstance(v, float)]
+        if not pending:
+            return
+        values = torch.stack([self.entire_losses[i] for i in pending]).cpu()
+        for i, v in zip(pending, values.tolist()):
+            self.entire_losses[i] = v
+
+    def train_one_epoch(self) -> float:
+        """Train the current epoch (its rest, after a mid-epoch resume);
+        return its mean loss."""
+        self.train_loader.set_epoch(self.epochs)
+        steps = len(self.train_loader)
+        skip_steps = self._resume_step_in_epoch
+        self._resume_step_in_epoch = 0
+        # The restored history holds the resumed epoch's prefix: the mean
+        # covers the whole epoch, as in an uninterrupted run.
+        epoch_start = max(len(self.entire_losses) - skip_steps, 0)
+        if skip_steps >= steps:
+            # The checkpoint landed on the epoch's last step: nothing is
+            # left to train, and no batch needs loading.
+            epoch_losses = self.entire_losses[epoch_start:]
+            return (float(np.mean(epoch_losses)) if epoch_losses
+                    else float("nan"))
+        with self._on_device():
+            for batch_idx, batch in enumerate(self.train_loader):
+                if batch_idx < skip_steps:
+                    continue
+                dev = use_on_current_stream(batch)
+                losses = train_step(self.model, self.optimizer,
+                                    self.scheduler,
+                                    {"img": dev["img"], "img_hw": dev["img_hw"],
+                                     "label": dev["label"]})
+                self.entire_losses.append(losses["total_loss"])
+                if self.global_iters % self.log_period == 0:
+                    self._log_step(losses, batch_idx + 1, steps)
+                if (self.ckpt_period_steps > 0
+                        and self.global_iters % self.ckpt_period_steps == 0):
+                    self.save_checkpoint(step_in_epoch=batch_idx + 1)
+                self.global_iters += 1
+        self._materialize_losses()
+        epoch_losses = self.entire_losses[epoch_start:]
+        return float(np.mean(epoch_losses)) if epoch_losses else float("nan")
+
+    def _log_step(self, losses: Dict[str, torch.Tensor], done: int,
+                  steps: int) -> None:
+        """The progress line, and the step's losses to the metrics file:
+        two stacked copies to the host (the losses, the pending history)."""
+        names = sorted(losses)
+        values = torch.stack([losses[k] for k in names]).cpu().tolist()
+        loss_host = dict(zip(names, values))
+        total = loss_host.pop("total_loss")
+        self._materialize_losses()
+        recent = self.entire_losses[-100:]
+        print(f"| Progress {progress_bar(done, steps)} | LR "
+              f"{self.current_lr:.6f} | Loss {total:8.4f} "
+              f"({sum(recent) / len(recent):8.4f}) |", flush=True)
+        if self.writer is not None:
+            self.writer.add_scalars(loss_host, tag="loss",
+                                    step=self.global_iters)
+
+    def _print_engine_info(self) -> None:
+        """Engine banner (reference base_engine.py:253-269)."""
+        kind = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "CPU")
+        print("=" * 70)
+        print(f" MonoCon Engine (PyTorch port) | {self.cfg.VERSION}")
+        print(f" - Description : {self.cfg.DESCRIPTION}")
+        print(f" - Device      : {self.device} ({kind})")
+        print(f" - Model       : DLA-{self.cfg.MODEL.BACKBONE.NUM_LAYERS}, "
+              f"{count_params(self.model) / 1e6:.2f}M params")
+        if self.train_dataset is not None:
+            print(f" - Train Data  : {len(self.train_dataset)} samples "
+                  f"({self.cfg.DATA.TRAIN_SPLIT})")
+        print(f" - Test Data   : {len(self.test_dataset)} samples "
+              f"({self.cfg.DATA.TEST_SPLIT})")
+        print(f" - Batch/Seed  : {self.cfg.DATA.BATCH_SIZE} / {self.cfg.SEED}")
+        print("=" * 70)
+
+    def train(self) -> None:
+        """Train from the current epoch to NUM_EPOCHS, evaluating and saving
+        a checkpoint every EVAL_PERIOD epochs, and the final checkpoint."""
+        if self.epochs > self.target_epochs:
+            raise ValueError(
+                f"the run is at epoch {self.epochs}, past SOLVER.OPTIM."
+                f"NUM_EPOCHS={self.target_epochs}: nothing to train")
+        self._print_engine_info()
+        export_cfg(self.cfg, os.path.join(self.root, "config.yaml"))
+        tprint(f"Training proceeds from epoch {self.epochs} to "
+               f"epoch {self.target_epochs}.")
+        tprint(f"Result files are saved to '{self.root}'.")
+        self.writer = MetricsWriter(self.writer_dir)
+        try:
+            for _ in range(self.epochs, self.target_epochs + 1):
+                print(f" Epoch {self.epochs:3d} / {self.target_epochs:3d} "
+                      .center(90, "="))
+                t0 = time.time()
+                avg_loss = self.train_one_epoch()
+                elapsed = time.time() - t0
+                self.epoch_times.append(elapsed)
+                remaining = (self.target_epochs - self.epochs) * float(
+                    np.mean(self.epoch_times))
+                print(f"\n- Average Loss: {avg_loss:.3f}")
+                print(f"- Epoch Time: {elapsed:.1f}s | ETA "
+                      f"{remaining / 3600:.2f}h")
+                if self.val_period > 0 and self.epochs % self.val_period == 0:
+                    self.writer.add_scalars(self.evaluate(), tag="eval",
+                                            step=self.epochs)
+                    self.save_checkpoint()
+                self.epochs += 1
+            self.epochs = self.target_epochs
+            self.save_checkpoint(final=True)
+        finally:
+            self.writer.close()
+            self.writer = None
 
     def _on_device(self):
         return (torch.cuda.device(self.device) if self.device.type == "cuda"
@@ -118,6 +381,7 @@ class MonoConEngine:
         (``img_bbox2d``). On the card, ``device_ms``, when given, receives
         each batch's device milliseconds from the normalisation to the end
         of the decode, by CUDA events."""
+        self.model.eval()
         container: Dict[str, List] = {"img_bbox": [], "img_bbox2d": []}
         events = ([] if device_ms is not None and self.device.type == "cuda"
                   else None)
@@ -185,5 +449,6 @@ class MonoConEngine:
 
     def run_eval_batch(self, batch: Dict[str, Any]):
         """One loader batch through the whole path, unpipelined."""
+        self.model.eval()
         with self._on_device():
             return self._finalize_eval(self._dispatch_eval(batch), batch)

@@ -11,7 +11,7 @@ on every parameter, as optax's ``adamw`` does.
 from __future__ import annotations
 
 import math
-from typing import Iterable, Tuple
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -50,7 +50,8 @@ class OneCycleScheduler:
     """Sets the LR and beta1 of each AdamW step.
 
     Call :meth:`step` before ``optimizer.step()``: it writes the values of
-    the coming step into every param group and advances the count."""
+    the coming step into every param group and advances the count, which
+    is its whole state (:meth:`state_dict`)."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, lr: float,
                  total_steps: int):
@@ -66,6 +67,12 @@ class OneCycleScheduler:
             group["lr"] = lr
             group["betas"] = (beta1, B2)
         self.count += 1
+
+    def state_dict(self) -> Dict[str, int]:
+        return {"count": self.count}
+
+    def load_state_dict(self, state: Dict[str, int]) -> None:
+        self.count = int(state["count"])
 
 
 def build_optimizer(

@@ -292,12 +292,12 @@ def test_config_files_load_as_in_jax(name):
 
 
 @pytest.mark.parametrize("setting, item", [
-    ({"is_test": False}, "item 10"),
+    ({"TPU": {"GRAD_ACCUM_STEPS": 2}, "is_test": False}, "item 13"),
     ({"TPU": {"COMPUTE_DTYPE": "bfloat16"}}, "item 14"),
     ({"TPU": {"NUM_DEVICES": 4}}, "item 16"),
     ({"TPU": {"SPATIAL_SHARDS": 2}}, "item 16"),
-    ({"DATA": {"IMAGE_CACHE": "auto"}}, "item 10"),
-], ids=["train", "bf16", "devices", "spatial", "image_cache"])
+    ({"TPU": {"MULTIHOST": True}}, "item 16"),
+], ids=["grad_accum", "bf16", "devices", "spatial", "multihost"])
 def test_engine_refuses_what_the_port_does_not_run(setting, item):
     cfg = get_default_cfg()
     cfg.merge_from_dict({k: v for k, v in setting.items() if k != "is_test"})

@@ -1,6 +1,7 @@
 """Rules of the port that hold whatever the numbers: it imports nothing of
-JAX or of the JAX package, its entry points never choose the CPU on their
-own, and ``chip_smoke.py`` refuses to run without a CUDA device."""
+JAX or of the JAX package, nor OpenCV or PIL, nor PyYAML outside reading a
+config file; its entry points never choose the CPU on their own; and
+``chip_smoke.py`` refuses to run without a CUDA device."""
 
 import ast
 import os
@@ -13,12 +14,16 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "monocon_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "monocon_tpu",
+             "cv2", "PIL")
+# PyYAML: only to read a config file.
+YAML_READERS = ("monocon_tpu_torch/config/defaults.py",)
 
 
 def _port_sources():
     return sorted((ROOT / "monocon_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "splat_breakdown.py"]
+        ROOT / "chip_smoke.py", ROOT / "splat_breakdown.py",
+        ROOT / "loop_breakdown.py"]
 
 
 def _imported_modules(path):
@@ -33,7 +38,10 @@ def _imported_modules(path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
     for module in _imported_modules(path):
-        assert module.split(".")[0] not in FORBIDDEN, (path, module)
+        top = module.split(".")[0]
+        assert top not in FORBIDDEN, (path, module)
+        if top == "yaml":
+            assert str(path.relative_to(ROOT)) in YAML_READERS, path
 
 
 def test_entry_points_refuse_to_pick_the_cpu(monkeypatch):
@@ -64,17 +72,22 @@ def test_chip_smoke_fails_without_a_card(alone, tmp_path):
     assert '"ok"' not in proc.stdout
 
 
-def test_test_cli_needs_a_card_unless_told(tmp_path):
+@pytest.mark.parametrize("cli, args", [
+    ("test", ["--checkpoint_file", "model.pth", "--evaluate"]),
+    ("train", ["--output_dir", "out"]),
+], ids=["test", "train"])
+def test_cli_needs_a_card_unless_told(cli, args, tmp_path):
     """With no ``--device`` and no CUDA device the CLI fails before it
-    reads anything."""
+    reads or writes anything."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))
     proc = subprocess.run(
-        [sys.executable, "-m", "monocon_tpu_torch.test", "--checkpoint_file",
-         str(tmp_path / "model.pth"), "--data_root", str(tmp_path),
-         "--evaluate"],
+        [sys.executable, "-m", f"monocon_tpu_torch.{cli}",
+         *(str(tmp_path / a) if a in ("model.pth", "out") else a
+           for a in args), "--data_root", str(tmp_path)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
+    assert os.listdir(tmp_path) == []
 
 
 # The card's machine has no OpenCV, no PIL and no PyYAML: with each import
@@ -106,3 +119,48 @@ def test_eval_path_needs_no_image_library(tmp_path):
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "read 2 images" in proc.stdout
+
+
+# The training path with the same three imports refused: a synthetic train
+# tree read through the train transforms, then one CPU step through
+# MonoConEngine.train(), which writes config.yaml and a checkpoint.
+TRAIN_WITHOUT_IMAGE_LIBRARIES = """
+import os, sys
+sys.modules["cv2"] = sys.modules["yaml"] = sys.modules["PIL"] = None
+import numpy as np
+import monocon_tpu_torch.train
+from monocon_tpu_torch import MonoConEngine
+from monocon_tpu_torch.config import get_default_cfg
+from monocon_tpu_torch.data.monocon_dataset import MonoConDataset
+from monocon_tpu_torch.data.synthetic import generate_kitti_dataset
+from monocon_tpu_torch.data.transforms import default_train_transforms
+root, out = sys.argv[1], sys.argv[2]
+generate_kitti_dataset(root, num_train=2, num_val=1, image_hw=(64, 160),
+                       seed=0)
+for seed in range(4):
+    sample = MonoConDataset(root, "train", transforms=default_train_transforms(
+        (48, 128), device_normalize=True)).get_sample(
+            0, np.random.default_rng(seed))
+    assert sample["img"].shape == (64, 160, 3), sample["img"].shape
+cfg = get_default_cfg()
+cfg.DATA.ROOT, cfg.OUTPUT_DIR, cfg.SEED = root, out, 0
+cfg.DATA.BATCH_SIZE, cfg.DATA.NUM_WORKERS = 2, 1
+cfg.DATA.CROP_HW, cfg.TPU.PAD_HW = [48, 128], [64, 160]
+cfg.SOLVER.OPTIM.NUM_EPOCHS, cfg.PERIOD.EVAL_PERIOD = 1, -1
+engine = MonoConEngine(cfg, device="cpu")
+engine.train()
+assert os.path.isfile(os.path.join(out, "config.yaml"))
+assert os.path.isfile(os.path.join(
+    out, "checkpoints", "epoch_001_final", "state.pth"))
+print("trained", engine.global_iters - 1, "step")
+"""
+
+
+def test_train_path_needs_no_image_library(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", TRAIN_WITHOUT_IMAGE_LIBRARIES,
+         str(tmp_path / "kitti"), str(tmp_path / "out")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "trained 1 step" in proc.stdout

@@ -56,7 +56,24 @@ result line:
    plain version and timed; and ``PhotometricDistortion`` ms per image
    (one thread). ``loop_breakdown.py`` times the loop against the same
    engine with no loader thread at work, over more epochs;
-8. kernels line: one JSON object per hand-written kernel. ``launches`` is
+8. configurations (bfloat16, DLA-102, the shipped config file): bfloat16
+   DLA-34, one 64x160 image and one 2x64x160 train step on the card
+   against the CPU in bfloat16, each head map and loss within 3x the
+   CPU's own bfloat16-to-float32 gap (the bound of
+   ``tests/test_torch_bf16.py``), then serve frames/s at batch 8 and train
+   ms/step and peak memory at batch 8 and 16, 384x1280, uint8 images,
+   with cuDNN's heuristics and then autotuned, float32 beside it, and a
+   torch.profiler breakdown of one step of each at batch 8;
+   DLA-102 at 64x160 card against CPU in float32 and bfloat16, then serve
+   frames/s and train ms/step in both at 384x1280, batch 8 (halved if the
+   card's memory refuses it); ``python -m monocon_tpu_torch.train
+   --config_file configs/kitti_v5e.yaml`` in a subprocess with PyYAML,
+   OpenCV and PIL refused, on the train-loop phase's tree (bfloat16, batch
+   16, two micro-steps per optimizer step, an evaluation): the schedule
+   count after 4 batches is 2, the splat kernel launches 8 times, every
+   loss is finite, 84 finite AP keys, and its wall time. The splat kernel
+   launches twice per micro-batch on every training path;
+9. kernels line: one JSON object per hand-written kernel. ``launches`` is
    the count of run D, ``launches_by_path`` that of each path; ``ms``,
    ``plain_ms``, ``bound_ms`` and ``per_call`` are those of run D's
    batch (96x312), ``per_call_train_step`` those of the isolated step
@@ -118,6 +135,31 @@ LOOP_RESUME_SEED = 7   # run C starts with this SEED and must adopt 0
 LOOP_TIMED_EPOCHS = 2  # run D: epoch 1 warms up, epoch 2 is timed
 PHOTOMETRIC_IMAGES = 16
 TRAIN_CLI_TIMEOUT_S = 600
+# The configurations phase. bfloat16 card against CPU: the bound of
+# tests/test_torch_bf16.py, with the port's own CPU bfloat16-to-float32 gap
+# in the place of the JAX package's.
+BF16_FACTOR = 3.0
+BF16_EPS = 2.0 ** -7
+SMALL_HW = (64, 160)
+BIG_BATCH = 16          # configs/kitti_v5e.yaml's batch
+DLA102_REL = 1e-3       # DLA-102 float32 head maps, card against CPU,
+                        # relative to each map's largest value
+CONFIG_FILE = "configs/kitti_v5e.yaml"
+CONFIG_ACCUM = 2
+# Imports the card's machine lacks, refused in the shipped-config run, which
+# then prints the splat kernel's launches.
+CONFIG_RUN = """
+import runpy, sys
+sys.modules["cv2"] = sys.modules["yaml"] = sys.modules["PIL"] = None
+sys.argv = ["train", *sys.argv[1:]]
+try:
+    runpy.run_module("monocon_tpu_torch.train", run_name="__main__")
+except SystemExit as e:
+    if e.code:
+        raise
+from monocon_tpu_torch.ops import splat
+print("SPLAT_LAUNCHES", splat.launch_count)
+"""
 # cuBLAS reads it when it creates its first handle: set before any CUDA
 # use, so that the deterministic runs can take deterministic products.
 CUBLAS_WORKSPACE = ":4096:8"
@@ -1216,6 +1258,360 @@ def phase_train_loop(tmp: Path) -> "tuple[list[dict], dict]":
                     "train_loop_D": launches_d}
 
 
+def check_bf16(got, want, ref_f32, what: str) -> "tuple[float, float]":
+    """``max|got - want| <= max(BF16_FACTOR * max|want - ref_f32|, BF16_EPS *
+    max|ref_f32|)``: a card's bfloat16 value against the CPU's, bounded by
+    the CPU's own bfloat16-to-float32 gap. Returns (error, gap)."""
+    got, want, ref_f32 = (np.asarray(a, np.float64)
+                          for a in (got, want, ref_f32))
+    gap = float(np.abs(want - ref_f32).max())
+    err = float(np.abs(got - want).max())
+    bound = max(BF16_FACTOR * gap, BF16_EPS * float(np.abs(ref_f32).max()))
+    if not err <= bound:
+        raise AssertionError(f"configs: {what}: card against CPU {err:.3g}, "
+                             f"above {bound:.3g} (CPU bf16 gap {gap:.3g})")
+    return err, gap
+
+
+def make_detector(num_layers: int, device, dtype, seed: int):
+    """``create_detector`` with weights from ``seed``. DLA-102's random init
+    carries its eval-mode activations to about 1e5 through the residual
+    roots, and the 3D decode overflows; so its BN running stats are set to
+    those of one batch (noise at 64x160, a train-mode forward on the CPU
+    with momentum 1), as a trained model's would follow its activations."""
+    import torch
+
+    from monocon_tpu_torch import create_detector
+
+    model = create_detector(num_layers,
+                            generator=torch.Generator().manual_seed(seed),
+                            device=device, compute_dtype=dtype)
+    if num_layers != 102:
+        return model
+    cpu = create_detector(num_layers,
+                          generator=torch.Generator().manual_seed(seed),
+                          device="cpu")
+    for m in cpu.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = 1.0
+    noise = np.random.default_rng(seed).normal(size=(2, *SMALL_HW, 3))
+    with torch.no_grad():
+        cpu.train()(torch.from_numpy(noise.astype(np.float32)))
+    model.load_state_dict(cpu.state_dict())
+    return model
+
+
+def small_runs(num_layers: int, dtypes, seed: int):
+    """One eval forward of an image and one train step of a batch of 2 at
+    64x160, per (device, dtype), from the same weights: {(device, dtype):
+    (head maps, losses)}, on the host."""
+    import torch
+
+    from monocon_tpu_torch import build_optimizer, train_step
+
+    rng = np.random.default_rng(seed)
+    image = rng.normal(size=(1, *SMALL_HW, 3)).astype(np.float32)
+    out = {}
+    for device in (DEVICE, "cpu"):
+        for dtype in dtypes:
+            model = make_detector(num_layers, device, dtype, seed).eval()
+            with torch.no_grad():
+                maps = {k: v.cpu() for k, v in
+                        model(torch.from_numpy(image).to(device)).items()}
+            opt, solver = build_optimizer(model.parameters(), total_steps=10)
+            batch = train_batch(np.random.default_rng(seed + 1), 2, SMALL_HW,
+                                device)
+            losses = {k: float(v) for k, v in
+                      train_step(model, opt, solver, batch).items()}
+            out[device, dtype] = (maps, losses)
+    return out
+
+
+def serve_fps(num_layers: int, dtype, seed: int) -> float:
+    """Frames/s of the eval forward + 3D decode at batch 8, 384x1280."""
+    import torch
+
+    from monocon_tpu_torch import decode_predictions
+    from monocon_tpu_torch.ops.decode import DEFAULT_P2
+
+    model = make_detector(num_layers, DEVICE, dtype, seed).eval()
+    images = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(SERVE_BATCH, *PAD_HW, 3)).astype(np.float32)).to(DEVICE)
+    p2s = torch.from_numpy(np.tile(DEFAULT_P2[None],
+                                   (SERVE_BATCH, 1, 1))).to(DEVICE)
+
+    def serve():
+        with torch.no_grad():
+            return decode_predictions(model(images), p2s, PAD_HW)
+
+    for _ in range(3):
+        serve()
+    torch.cuda.synchronize()
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        dec = serve()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not all(torch.isfinite(v.float()).all() for v in dec.values()):
+        raise AssertionError(f"configs: DLA-{num_layers} {dtype}: non-finite "
+                             "decode")
+    return SERVE_BATCH * iters / dt
+
+
+def kernel_breakdown(fn, top: int = 6) -> str:
+    """One ``fn()`` under torch.profiler: the card's busy share of its wall
+    time, its kernels' summed device time, and the ``top`` kernels by
+    device time (a lower bound on the untraced busy share: tracing slows
+    the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            start, end = e.time_range.start, e.time_range.end
+            spans.append((start, end))
+            count, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (count + 1, us + end - start)
+    if not spans:
+        return "not measured (no device activity in the trace)"
+    busy_us, covered = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > covered:
+            busy_us += end - max(start, covered)
+            covered = end
+    total_us = sum(us for _, us in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return (f"busy {busy_us / 1e3 / wall_ms:.1%} of {wall_ms:.3f} ms traced "
+            f"wall, kernels {total_us / 1e3:.3f} ms in {len(spans)} launches;"
+            " top: " + "; ".join(f"{name[:70]} {us / 1e3:.3f} ms x{count}"
+                                for name, (count, us) in ranked))
+
+
+def timed_steps(num_layers: int, dtype, batch_size: int, seed: int,
+                what: str, breakdown: bool = False) -> "tuple[float, int, int]":
+    """``TRAIN_STEPS`` train steps at 384x1280 with uint8 images, the
+    splat kernel's count set to 0 before them: (mean ms over steps 1 on,
+    max_memory_allocated, launches). Two launches per step, and every loss
+    finite. ``breakdown``: then one more step under torch.profiler."""
+    import torch
+
+    from monocon_tpu_torch import build_optimizer, train_step
+    from monocon_tpu_torch.ops import splat
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = make_detector(num_layers, DEVICE, dtype, seed)
+    opt, solver = build_optimizer(model.parameters(), total_steps=TRAIN_STEPS)
+    batch = train_batch(np.random.default_rng(seed + 1), batch_size, PAD_HW,
+                        DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    splat.launch_count = 0
+    times = []
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses = train_step(model, opt, solver, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not all(np.isfinite(float(v)) for v in losses.values()):
+            raise AssertionError(f"configs: {what}: non-finite loss at step "
+                                 f"{step}")
+    launches = splat.launch_count
+    if launches != 2 * TRAIN_STEPS:
+        raise AssertionError(f"configs: {what}: splat launched {launches} "
+                             f"times in {TRAIN_STEPS} steps")
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.mean(times[1:])) * 1e3
+    cudnn = ("cuDNN autotuned" if torch.backends.cudnn.benchmark
+             else "cuDNN heuristics")
+    log(f"[configs] {what}: B={batch_size} at {PAD_HW[0]}x{PAD_HW[1]}, uint8 "
+        f"images, {cudnn}: {ms:.3f} ms/step over steps 1-{TRAIN_STEPS - 1} "
+        f"({', '.join(f'{t * 1e3:.3f}' for t in times[1:])}; step 0: "
+        f"{times[0] * 1e3:.3f} ms), {batch_size * 1e3 / ms:.3f} images/s; "
+        f"max_memory_allocated {peak} bytes; splat launches {launches}")
+    if breakdown:
+        log(f"[configs] {what}: one more B={batch_size} step under "
+            "torch.profiler: " + kernel_breakdown(
+                lambda: train_step(model, opt, solver, batch)))
+    del model, opt, solver, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms, peak, launches
+
+
+def phase_bf16() -> int:
+    """bfloat16 DLA-34: serving and the train step, card against CPU at
+    64x160, then timed at 384x1280. Returns the splat launches of the
+    timed steps."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    runs = small_runs(34, (bf16, f32), SEED + 5)
+    (maps_g, losses_g) = runs[DEVICE, bf16]
+    (maps_c, losses_c), (maps_f, losses_f) = runs["cpu", bf16], runs["cpu", f32]
+    ratios = []
+    for key in maps_c:
+        if not torch.isfinite(maps_g[key]).all():
+            raise AssertionError(f"configs: bf16 serve {key} not finite")
+        err, gap = check_bf16(maps_g[key], maps_c[key], maps_f[key],
+                              f"bf16 serve {key}")
+        ratios.append(err / gap if gap else 0.0)
+    log(f"[configs] bf16 DLA-34, one 64x160 image, card against CPU: all "
+        f"{len(maps_c)} head maps within max({BF16_FACTOR:g} x the CPU's "
+        f"bf16-f32 gap, bf16 eps x scale); |card - CPU| / gap "
+        f"{min(ratios):.3f}-{max(ratios):.3f}")
+    for key in losses_c:
+        check_bf16(losses_g[key], losses_c[key], losses_f[key],
+                   f"bf16 train {key}")
+    log(f"[configs] bf16 DLA-34, one 2x64x160 step, card against CPU: all "
+        f"{len(losses_c)} losses within the same bound; total "
+        f"{losses_g['total_loss']:.6f} (CPU bf16 {losses_c['total_loss']:.6f},"
+        f" f32 {losses_f['total_loss']:.6f})")
+    log(f"[configs] bf16 DLA-34 serve: batch {SERVE_BATCH} at "
+        f"{PAD_HW[0]}x{PAD_HW[1]}: {serve_fps(34, bf16, SEED):.3f} frames/s")
+    # As chip_smoke's other phases run (cuDNN's heuristics), then as the
+    # train CLI runs (USE_BENCHMARK: cuDNN autotunes); float32 beside it in
+    # the same call, with where the card's time goes in one step of each.
+    launches = 0
+    for benchmark in (False, True):
+        torch.backends.cudnn.benchmark = benchmark
+        try:
+            for batch_size in (TRAIN_BATCH, BIG_BATCH):
+                launches += timed_steps(
+                    34, bf16, batch_size, SEED, "bf16 DLA-34 train",
+                    breakdown=batch_size == TRAIN_BATCH)[2]
+            timed_steps(34, f32, TRAIN_BATCH, SEED, "float32 DLA-34 train",
+                        breakdown=True)
+        finally:
+            torch.backends.cudnn.benchmark = False
+    return launches
+
+
+def phase_dla102() -> int:
+    """DLA-102 (Bottlenecks, residual roots) in float32 and bfloat16: card
+    against CPU at 64x160, serve frames/s and train ms/step at 384x1280,
+    batch 8 (halved if the card's memory refuses it). Returns the splat
+    launches of the timed steps."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    runs = small_runs(102, (f32, bf16), SEED + 6)
+    (maps_g, losses_g), (maps_c, losses_c) = runs[DEVICE, f32], runs["cpu", f32]
+    worst = 0.0
+    for key, want in maps_c.items():
+        got = maps_g[key]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"configs: DLA-102 serve {key} not finite")
+        rel = float((got - want).abs().max() / want.abs().max())
+        if rel > DLA102_REL:
+            raise AssertionError(f"configs: DLA-102 f32 serve {key}: card "
+                                 f"against CPU {rel:.3g} of its scale")
+        worst = max(worst, rel)
+    for key, want in losses_c.items():
+        got = losses_g[key]
+        if not (np.isfinite(got) and abs(got - want) <= 1e-4 + 1e-3 * abs(want)):
+            raise AssertionError(f"configs: DLA-102 f32 train {key}: card "
+                                 f"{got} against CPU {want}")
+    (maps_gb, losses_gb), (maps_cb, losses_cb) = (runs[DEVICE, bf16],
+                                                  runs["cpu", bf16])
+    for key in maps_cb:
+        check_bf16(maps_gb[key], maps_cb[key], maps_c[key],
+                   f"DLA-102 bf16 serve {key}")
+    for key in losses_cb:
+        check_bf16(losses_gb[key], losses_cb[key], losses_c[key],
+                   f"DLA-102 bf16 train {key}")
+    log(f"[configs] DLA-102 at 64x160, card against CPU: float32 head maps "
+        f"within {DLA102_REL:g} of each map's scale (worst {worst:.3g}) and "
+        f"the 11 losses within rtol 1e-3 / atol 1e-4; bfloat16 maps and "
+        f"losses within the bf16 bound")
+    launches = 0
+    for dtype in (f32, bf16):
+        name = "float32" if dtype == f32 else "bfloat16"
+        log(f"[configs] DLA-102 {name} serve: batch {SERVE_BATCH} at "
+            f"{PAD_HW[0]}x{PAD_HW[1]}: {serve_fps(102, dtype, SEED):.3f} "
+            "frames/s")
+        batch_size = TRAIN_BATCH
+        while True:
+            try:
+                launches += timed_steps(102, dtype, batch_size, SEED,
+                                        f"DLA-102 {name} train")[2]
+                break
+            except torch.cuda.OutOfMemoryError:
+                if batch_size == 1:
+                    raise
+                gc.collect()
+                torch.cuda.empty_cache()
+                log(f"[configs] DLA-102 {name} train: B={batch_size} does "
+                    f"not fit the card's memory; halving the batch")
+                batch_size //= 2
+    return launches
+
+
+def phase_config_file(root: Path, out: Path) -> int:
+    """The shipped config through the train CLI in a subprocess, with
+    PyYAML, OpenCV and PIL refused: bfloat16, batch 16, two micro-steps per
+    optimizer step, one epoch of the train-loop phase's 64 images and an
+    evaluation of its 16. Returns the splat kernel's launches."""
+    import torch
+
+    cmd = [sys.executable, "-c", CONFIG_RUN, "--config_file", CONFIG_FILE,
+           "--set", "DATA.ROOT", str(root), "--set", "OUTPUT_DIR", str(out),
+           "--set", "SOLVER.OPTIM.NUM_EPOCHS", "1",
+           "--set", "TPU.GRAD_ACCUM_STEPS", str(CONFIG_ACCUM),
+           "--set", "PERIOD.EVAL_PERIOD", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True,
+                          timeout=TRAIN_CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    (out / "config_run.log").parent.mkdir(parents=True, exist_ok=True)
+    (out / "config_run.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"configs: the config-file run exited "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    launches = [int(line.split()[1]) for line in proc.stdout.splitlines()
+                if line.startswith("SPLAT_LAUNCHES")]
+    batches = LOOP_TRAIN_IMAGES // BIG_BATCH
+    if launches != [2 * batches]:
+        raise AssertionError(f"configs: the config-file run launched the "
+                             f"splat kernel {launches} times, expected "
+                             f"{2 * batches} (2 per micro-batch)")
+    saved = (out / "config.yaml").read_text()
+    for line in ('COMPUTE_DTYPE: "bfloat16"', f"BATCH_SIZE: {BIG_BATCH}",
+                 f"GRAD_ACCUM_STEPS: {CONFIG_ACCUM}"):
+        if line not in saved:
+            raise AssertionError(f"configs: config.yaml lacks {line!r}")
+    container, meta, ap = read_run(out)
+    solver = container["state_dict"]["scheduler"]
+    if (solver["count"], solver["mini_step"]) != (batches // CONFIG_ACCUM, 0):
+        raise AssertionError(f"configs: the config-file run's solver is at "
+                             f"{solver['count']} steps, micro-step "
+                             f"{solver['mini_step']}")
+    if len(meta["entire_losses"]) != batches:
+        raise AssertionError(f"configs: {len(meta['entire_losses'])} losses "
+                             f"for {batches} batches")
+    check_losses(meta["entire_losses"], "config-file run")
+    check_ap(ap)
+    del container
+    log(f"[configs] python -m monocon_tpu_torch.train --config_file "
+        f"{CONFIG_FILE} (PyYAML, OpenCV and PIL refused; bfloat16, batch "
+        f"{BIG_BATCH}, TPU.GRAD_ACCUM_STEPS {CONFIG_ACCUM}): {batches} "
+        f"micro-batches, schedule count {solver['count']}, splat launches "
+        f"{launches[0]}, losses {meta['entire_losses']}, evaluation 84 finite "
+        f"AP keys; {wall:.3f} s wall (process start, builds, one epoch, the "
+        f"evaluation, the checkpoints)")
+    torch.cuda.empty_cache()
+    return launches[0]
+
+
 def main() -> int:
     import torch
 
@@ -1235,7 +1631,13 @@ def main() -> int:
     by_path["eval"] = 0
     with tempfile.TemporaryDirectory() as tmp:
         loop_calls, loop_launches = phase_train_loop(Path(tmp))
-    by_path.update(loop_launches)
+        by_path.update(loop_launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["train_step_bf16"] = phase_bf16()
+        by_path["train_step_dla102"] = phase_dla102()
+        by_path["config_file_run"] = phase_config_file(
+            Path(tmp) / "kitti_train", Path(tmp) / "run_config")
     # The numbers of the path whose launches the line reports: run D's.
     entry = splat_entry(loop_calls, max(
         worst, *(s["max_abs_err"] for s in loop_calls)))

@@ -20,19 +20,19 @@ from .models.detector import MonoConDetector, create_detector
 from .ops.decode import decode_predictions
 from .ops.image_norm import normalize_if_raw
 from .ops.targets import generate_targets
-from .solver.schedule import OneCycleScheduler, build_optimizer
+from .solver.schedule import Solver, build_optimizer
 from .utils.weights import state_dict_from_jax
 
 __all__ = [
     "MonoConDetector",
     "MonoConEngine",
-    "OneCycleScheduler",
     "build_optimizer",
     "compute_losses",
     "create_detector",
     "decode_predictions",
     "generate_targets",
     "normalize_if_raw",
+    "Solver",
     "resolve_device",
     "state_dict_from_jax",
     "train_step",

@@ -1,20 +1,18 @@
 """Configuration tree of the port.
 
 A copy of ``monocon_tpu/config/defaults.py``: the same key tree, ``TPU.*``
-included, so that the files in ``configs/`` load in both packages. PyYAML
-is imported only where a file is read, so that :func:`get_default_cfg` and
-:func:`export_cfg` work without it (the card's machine has none):
-:meth:`ConfigNode.dump` writes YAML itself. :func:`check_port_support`
-refuses the settings the port does not run yet.
+included, so that the files in ``configs/`` load in both packages. Files are
+read and written by ``yaml_subset.py``, with no PyYAML (the card's machine
+has none). :func:`check_port_support` refuses the settings the port does
+not run yet.
 """
 
 from __future__ import annotations
 
 import copy
-import json
-import math
-import re
-from typing import Any, Dict, List
+from typing import Any, Dict
+
+from . import yaml_subset
 
 
 class ConfigNode(dict):
@@ -43,10 +41,8 @@ class ConfigNode(dict):
                 self[k] = v
 
     def merge_from_file(self, path: str) -> None:
-        import yaml
-
-        with open(path) as f:
-            data = yaml.safe_load(f)
+        with open(path, encoding="utf-8") as f:
+            data = yaml_subset.safe_load(f.read())
         if data:
             self.merge_from_dict(data)
 
@@ -57,60 +53,8 @@ class ConfigNode(dict):
         return out
 
     def dump(self) -> str:
-        """The tree as block-style YAML that ``yaml.safe_load`` reads back
-        equal: nested mappings, and lists and scalars of str, int, float,
-        bool and None."""
-        return "".join(line + "\n" for line in _yaml_lines(self, 0))
-
-
-# Plain YAML 1.1 scalars that would not read back as the same string.
-_PLAIN_KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_]*\Z")
-_YAML_WORDS = {"y", "n", "yes", "no", "on", "off", "true", "false", "null"}
-
-
-def _yaml_scalar(value: Any) -> str:
-    if value is None:
-        return "null"
-    if isinstance(value, bool):
-        return "true" if value else "false"
-    if isinstance(value, int):
-        return str(value)
-    if isinstance(value, float):
-        if math.isnan(value):
-            return ".nan"
-        if math.isinf(value):
-            return ".inf" if value > 0 else "-.inf"
-        text = repr(value)
-        # YAML 1.1 reads a float only with a dot in its mantissa.
-        mantissa, e, exponent = text.partition("e")
-        if "." not in mantissa:
-            mantissa += ".0"
-        return mantissa + e + exponent
-    if isinstance(value, str):
-        return json.dumps(value)     # a valid YAML double-quoted scalar
-    if isinstance(value, (list, tuple)):
-        return "[" + ", ".join(_yaml_scalar(v) for v in value) + "]"
-    raise TypeError(f"cannot write {type(value).__name__} {value!r} as YAML")
-
-
-def _yaml_key(key: str) -> str:
-    key = str(key)
-    if _PLAIN_KEY.match(key) and key.lower() not in _YAML_WORDS:
-        return key
-    return json.dumps(key)
-
-
-def _yaml_lines(tree: Dict[str, Any], depth: int) -> List[str]:
-    pad = "  " * depth
-    lines = []
-    for key, value in tree.items():
-        if isinstance(value, dict) and value:
-            lines.append(f"{pad}{_yaml_key(key)}:")
-            lines.extend(_yaml_lines(value, depth + 1))
-        else:
-            text = "{}" if isinstance(value, dict) else _yaml_scalar(value)
-            lines.append(f"{pad}{_yaml_key(key)}: {text}")
-    return lines
+        """The tree as block-style YAML (:func:`yaml_subset.dump`)."""
+        return yaml_subset.dump(self)
 
 
 def _to_node(d: Dict[str, Any]) -> ConfigNode:
@@ -179,9 +123,8 @@ _DEFAULTS: Dict[str, Any] = {
         "CKPT_PERIOD_STEPS": 0,  # mid-epoch checkpoints, in steps (0 = off)
     },
     # The JAX package's accelerator knobs, under the same name so that one
-    # config file serves both packages. The port reads PAD_HW,
-    # IMAGE_TRANSPORT and PREFETCH_BATCHES, and refuses what it does not
-    # run yet (check_port_support).
+    # config file serves both packages. The port reads all but
+    # PALLAS_TARGETS, and refuses more than one device (check_port_support).
     "TPU": {
         "COMPUTE_DTYPE": "float32",
         "NUM_DEVICES": -1,            # -1: all devices (the port: one)
@@ -218,33 +161,10 @@ def export_cfg(cfg: ConfigNode, save_path: str) -> None:
         f.write(cfg.dump())
 
 
-# The solver the port trains with: AdamW's weight decay, the one-cycle
-# schedules and the global-norm clip at 35 are fixed (solver/schedule.py,
-# engine/train_step.py).
-_FIXED_SOLVER = {"OPTIM.WEIGHT_DECAY": 1e-5, "SCHEDULER.ENABLE": True,
-                 "CLIP_GRAD.ENABLE": True, "CLIP_GRAD.MAX_NORM": 35}
-
-
-def check_port_support(cfg: ConfigNode, training: bool = False) -> None:
-    """Raise ``NotImplementedError`` for settings the port does not run yet,
-    naming the ROADMAP item that will bring each. ``training``: also the
-    settings that only training reads."""
-    if cfg.TPU.COMPUTE_DTYPE != "float32":
-        raise NotImplementedError(
-            f"TPU.COMPUTE_DTYPE={cfg.TPU.COMPUTE_DTYPE!r}: the port computes "
-            "in float32 only; bfloat16 is ROADMAP item 14")
-    if training and cfg.TPU.GRAD_ACCUM_STEPS > 1:
-        raise NotImplementedError(
-            f"TPU.GRAD_ACCUM_STEPS={cfg.TPU.GRAD_ACCUM_STEPS}: the port takes "
-            "one optimizer step per batch; gradient accumulation is ROADMAP "
-            "item 13")
-    if training:
-        for name, want in _FIXED_SOLVER.items():
-            group, key = name.split(".")
-            if cfg.SOLVER[group][key] != want:
-                raise NotImplementedError(
-                    f"SOLVER.{name}={cfg.SOLVER[group][key]!r}: the port "
-                    f"trains with {want!r} only (ROADMAP item 10, left)")
+def check_port_support(cfg: ConfigNode) -> None:
+    """Raise ``NotImplementedError`` for the settings the port does not run
+    yet, those of more than one device, naming the ROADMAP item that will
+    bring them."""
     if (cfg.TPU.NUM_DEVICES > 1 or cfg.TPU.SPATIAL_SHARDS > 1
             or cfg.TPU.MULTIHOST):
         raise NotImplementedError(

@@ -6,7 +6,10 @@ The resume contract of ``monocon_tpu/engine/checkpoint.py`` (reference
   * :func:`save_checkpoint` writes ``{weight_dir}/epoch_{E:03d}[_final]/``
     holding ``state.pth``, the reference engine container
     ``{'engine_attrs': {...}, 'state_dict': {'model', 'optimizer',
-    'scheduler'}}``, and then ``meta.json`` (counters, loss history, data
+    'scheduler'}}`` (``scheduler`` holds the solver's state: the optimizer
+    step count and, with gradient accumulation, the micro-step index and
+    the partial mean gradient, so that a save between two optimizer steps
+    resumes exactly), and then ``meta.json`` (counters, loss history, data
     seed), each written to a temporary name and renamed into place.
     ``meta.json`` is the commit marker: it is written last, and a save
     over an existing checkpoint removes the old one first.
@@ -14,7 +17,7 @@ The resume contract of ``monocon_tpu/engine/checkpoint.py`` (reference
     directory that holds both files, so auto-resume never restores a
     checkpoint whose save was cut short.
   * :func:`load_checkpoint` restores the model, the optimizer and the
-    schedule and returns ``meta``.
+    solver and returns ``meta``.
 
 A ``state.pth`` is a reference-format ``.pth``: :func:`load_weights` reads
 it as it reads the reference's, the JAX package's ``save_torch_checkpoint``
@@ -35,7 +38,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from ..solver.schedule import OneCycleScheduler
+from ..solver.schedule import Solver
 
 STATE_FILE = "state.pth"
 META_FILE = "meta.json"
@@ -70,7 +73,7 @@ def save_checkpoint(
     weight_dir: str,
     model: nn.Module,
     optimizer: torch.optim.Optimizer,
-    scheduler: OneCycleScheduler,
+    solver: Solver,
     epoch: int,
     global_iters: int,
     final: bool = False,
@@ -82,7 +85,7 @@ def save_checkpoint(
         "engine_attrs": {"epochs": epoch, "global_iters": global_iters},
         "state_dict": {"model": model.state_dict(),
                        "optimizer": optimizer.state_dict(),
-                       "scheduler": scheduler.state_dict()},
+                       "scheduler": solver.state_dict()},
     }
     # meta.json is the COMMIT MARKER, written strictly after state.pth:
     # a crash between the two leaves a directory that resume skips. A
@@ -104,15 +107,15 @@ def save_checkpoint(
 
 def load_checkpoint(path: str, model: nn.Module,
                     optimizer: torch.optim.Optimizer,
-                    scheduler: OneCycleScheduler) -> Dict[str, Any]:
-    """Restore the model, the optimizer and the schedule from the
-    checkpoint directory ``path``; return its ``meta.json``."""
+                    solver: Solver) -> Dict[str, Any]:
+    """Restore the model, the optimizer and the solver from the checkpoint
+    directory ``path``; return its ``meta.json``."""
     container = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                            weights_only=True)
     state = container["state_dict"]
     model.load_state_dict(state["model"], strict=True)
     optimizer.load_state_dict(state["optimizer"])
-    scheduler.load_state_dict(state["scheduler"])
+    solver.load_state_dict(state["scheduler"])
     with open(os.path.join(path, META_FILE)) as f:
         return json.load(f)
 

@@ -11,11 +11,21 @@ progress bar, LR and 100-step mean, ``loss/*`` and ``eval/*`` scalars in
 training.
 
 Training runs ``train_step`` (targets with the CUDA splat kernel on the
-card, forward, 10 losses, backward, clip, AdamW) on each loader batch as
-it comes: the last batch of an epoch is as short as the split leaves it,
-where the JAX engine pads it and masks the padding out. The loss of each
-step stays on the device; the host reads them in one stacked copy on log
-steps and at the end of the epoch, never one per step.
+card, forward, 10 losses, backward, the solver: accumulation, clip, AdamW)
+on each loader batch as it comes: the last batch of an epoch is as short
+as the split leaves it, where the JAX engine pads it and masks the padding
+out. With ``TPU.GRAD_ACCUM_STEPS = k > 1`` each loader batch is one
+micro-step and AdamW steps on every k-th, on the mean gradient, as
+``optax.MultiSteps`` does in the JAX engine: a short last batch counts as
+one micro-step of equal weight, and an accumulation left open at the end
+of an epoch carries into the next. The schedules run over loader steps
+// k optimizer steps; ``global_iters``, logging and ``CKPT_PERIOD_STEPS``
+count loader batches. ``TPU.COMPUTE_DTYPE = bfloat16`` runs the
+detector's forward in bfloat16 (``models/detector.py``) for training and
+evaluation alike; parameters, optimizer state and targets stay float32.
+The loss of each step stays on the device; the host reads them in one
+stacked copy on log steps and at the end of the epoch, never one per
+step.
 
 The evaluation loop keeps the card and the host working at once, as the
 JAX engine's does: batch i+1's forward is queued before batch i's
@@ -51,7 +61,7 @@ from ..device import resolve_device
 from ..models.detector import create_detector
 from ..ops.decode import decode_predictions
 from ..ops.image_norm import normalize_if_raw
-from ..solver.schedule import build_optimizer, one_cycle_lr
+from ..solver.schedule import build_optimizer
 from ..utils.convert import (
     convert_to_kitti_2d,
     convert_to_kitti_3d,
@@ -87,7 +97,7 @@ class MonoConEngine:
             cfg = get_default_cfg()
         elif isinstance(cfg, str):
             cfg = load_cfg(cfg)
-        check_port_support(cfg, training=not is_test)
+        check_port_support(cfg)
         self.cfg = cfg
         self.is_test = is_test
         self.device = resolve_device(device)
@@ -114,17 +124,28 @@ class MonoConEngine:
         self.model = create_detector(
             cfg.MODEL.BACKBONE.NUM_LAYERS, cfg.MODEL.HEAD.NUM_CLASSES,
             generator=torch.Generator().manual_seed(max(cfg.SEED, 0)),
-            device=self.device).eval()
+            device=self.device,
+            compute_dtype=(torch.bfloat16
+                           if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+                           else torch.float32)).eval()
 
-        self.optimizer = self.scheduler = None
+        self.optimizer = self.solver = None
         if not is_test:
             pretrained = cfg.MODEL.BACKBONE.PRETRAINED_PATH
             if cfg.MODEL.BACKBONE.IMAGENET_PRETRAINED and pretrained:
                 load_imagenet_backbone(pretrained, self.model)
                 tprint(f"ImageNet backbone loaded from '{pretrained}'.")
-            self.optimizer, self.scheduler = build_optimizer(
-                self.model.parameters(), lr=cfg.SOLVER.OPTIM.LR,
-                total_steps=max(1, len(self.train_loader) * self.target_epochs))
+            grad_accum = max(1, int(cfg.TPU.GRAD_ACCUM_STEPS))
+            settings = cfg.SOLVER
+            self.optimizer, self.solver = build_optimizer(
+                self.model.parameters(), lr=settings.OPTIM.LR,
+                weight_decay=settings.OPTIM.WEIGHT_DECAY,
+                total_steps=max(1, len(self.train_loader)
+                                * self.target_epochs // grad_accum),
+                use_scheduler=settings.SCHEDULER.ENABLE,
+                clip_grad_norm=(settings.CLIP_GRAD.MAX_NORM
+                                if settings.CLIP_GRAD.ENABLE else None),
+                grad_accum=grad_accum)
 
         # Output dirs + auto-resume (reference base_engine.py:57-78).
         self.root = cfg.OUTPUT_DIR or "./outputs"
@@ -175,16 +196,17 @@ class MonoConEngine:
 
     def load_checkpoint(self, path: str) -> None:
         """A checkpoint directory of a training engine resumes the run:
-        weights, optimizer, schedule, counters, loss history and the data
-        seed. A ``.pth``/``.pt``, or any checkpoint in an evaluation engine,
-        loads the detector's weights only."""
+        weights, optimizer, solver (schedule count, an open accumulation),
+        counters, loss history and the data seed. A ``.pth``/``.pt``, or
+        any checkpoint in an evaluation engine, loads the detector's
+        weights only."""
         if self.is_test or path.endswith((".pth", ".pt")):
             if os.path.isfile(os.path.join(path, STATE_FILE)):
                 path = os.path.join(path, STATE_FILE)
             load_weights(path, self.model)
             return
         meta = load_checkpoint(path, self.model, self.optimizer,
-                               self.scheduler)
+                               self.solver)
         # Adopt the interrupted run's data seed: the loaders were built
         # with this process's cfg.SEED, but the shuffle/augmentation
         # stream belongs to the run being resumed (train.py randomizes
@@ -220,7 +242,7 @@ class MonoConEngine:
         the ``global_iters`` of the step after them."""
         self._materialize_losses()
         path = save_checkpoint(
-            self.weight_dir, self.model, self.optimizer, self.scheduler,
+            self.weight_dir, self.model, self.optimizer, self.solver,
             self.epochs, self.global_iters + (1 if step_in_epoch else 0),
             final=final,
             extra={"entire_losses": self.entire_losses,
@@ -239,11 +261,9 @@ class MonoConEngine:
         """The LR that the JAX engine reads from optax's injected
         hyperparams (engine.py:270-284): that of the last optimizer step,
         or before the first step the first step's."""
-        if self.scheduler is None:
+        if self.solver is None:
             return float(self.cfg.SOLVER.OPTIM.LR)
-        sched = self.scheduler
-        return one_cycle_lr(max(sched.count - 1, 0), sched.lr,
-                            sched.total_steps)
+        return self.solver.current_lr
 
     def _materialize_losses(self) -> None:
         """Turn the device scalars in ``entire_losses`` into host floats
@@ -278,7 +298,7 @@ class MonoConEngine:
                     continue
                 dev = use_on_current_stream(batch)
                 losses = train_step(self.model, self.optimizer,
-                                    self.scheduler,
+                                    self.solver,
                                     {"img": dev["img"], "img_hw": dev["img_hw"],
                                      "label": dev["label"]})
                 self.entire_losses.append(losses["total_loss"])

@@ -1,9 +1,10 @@
-"""One training step: targets, forward, 10 losses, backward, clip, AdamW.
+"""One training step: targets, forward, 10 losses, backward, the solver.
 
 Port of ``monocon_tpu/engine/train_step.py``. Loss weights are the
 reference's (wh 0.1, all others 1.0). Targets are constants, so they are
-built under ``no_grad``; on the card their Gaussian heatmaps come from the
-CUDA splat kernel (two launches per step).
+built under ``no_grad`` and stay float32 whatever the model's compute
+dtype; on the card their Gaussian heatmaps come from the CUDA splat kernel
+(two launches per step, and per micro-step when gradients accumulate).
 """
 
 from __future__ import annotations
@@ -23,10 +24,9 @@ from ..losses.losses import (
 from ..ops.heatmap import gather_feature
 from ..ops.image_norm import normalize_if_raw
 from ..ops.targets import generate_targets
-from ..solver.schedule import OneCycleScheduler, clip_by_global_norm_
+from ..solver.schedule import Solver
 
 EPS = 1e-12
-CLIP_GRAD_NORM = 35.0
 FEAT_STRIDE = 4
 
 
@@ -104,11 +104,14 @@ def compute_losses(pred: Dict[str, torch.Tensor],
 
 
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-               scheduler: OneCycleScheduler,
+               solver: Solver,
                batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """One optimizer step on ``batch = {'img': (B,H,W,3), 'label': {...},
-    'img_hw': optional (B,2)}``, all on the model's device. Returns the ten
-    losses and ``total_loss``, detached, without a host sync."""
+    """One micro-step on ``batch = {'img': (B,H,W,3), 'label': {...},
+    'img_hw': optional (B,2)}``, all on the model's device: the solver
+    steps AdamW on this batch's gradient, or with accumulation on every
+    ``grad_accum``-th call (:class:`Solver`). BN running stats update on
+    every call. Returns the ten losses and ``total_loss``, detached, without
+    a host sync."""
     img = normalize_if_raw(batch["img"], batch.get("img_hw"))
     pad_hw = (img.shape[1], img.shape[2])
     feat_hw = (pad_hw[0] // FEAT_STRIDE, pad_hw[1] // FEAT_STRIDE)
@@ -120,15 +123,6 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     total = sum(losses.values())
     optimizer.zero_grad(set_to_none=True)
     total.backward()
-    for p in model.parameters():
-        # The outer trees' ``project`` (kept for the reference's keys) is
-        # unused and gets no gradient; optax still decays it, so AdamW must
-        # see a zero gradient rather than skip it.
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    clip_by_global_norm_([p.grad for p in model.parameters()],
-                         CLIP_GRAD_NORM)
-    scheduler.step()
-    optimizer.step()
+    solver.step()
     losses["total_loss"] = total
     return {k: v.detach() for k, v in losses.items()}

@@ -5,6 +5,26 @@ Port of ``monocon_tpu/models/detector.py``. The image goes in NHWC
 Inside, the model is NCHW in ``channels_last`` memory format: a contiguous
 NHWC tensor permuted to NCHW already is a channels_last tensor, so neither
 boundary copies.
+
+Compute dtype. The JAX package computes in bfloat16 by giving every flax
+module ``dtype=jnp.bfloat16``: convolutions (the neck's depthwise up-convs
+too) take bfloat16 inputs and kernels over float32 parameters, elementwise
+ops follow their inputs, BatchNorm takes float32 moments and writes
+bfloat16, AttnWeights pools in float32, and the heads cast their outputs to
+float32 before the post-ops. The port takes the same route through
+``torch.autocast(dtype=torch.bfloat16)`` around the forward, on the CPU as
+on the card: autocast casts each convolution's input and weight (cached
+per forward) and leaves the parameters float32, which flax's per-module
+casts also do, so no module needs a copy of its own for bfloat16. The
+places where flax stays in float32 under bfloat16 do so here explicitly:
+``MomentsBatchNorm`` and ``AttnWeights`` promote to float32
+(``layers.py``), ``nn.BatchNorm2d`` keeps float32 statistics for a
+bfloat16 input, and the heads end in ``.float()``. The two packages still
+round at different places (XLA rounds a fused chain of elementwise ops
+once, torch after each op; each convolution library accumulates in its
+own order), so bfloat16 parity with the JAX package is held to a multiple
+of the JAX package's own bfloat16-to-float32 gap
+(``tests/test_torch_bf16.py``), not to float32 tolerances.
 """
 
 from __future__ import annotations
@@ -23,19 +43,31 @@ from .neck import START_LEVEL, DLAUp, bilinear_upsample_kernel
 
 
 class MonoConDetector(nn.Module):
+    """DLA-``num_layers`` backbone, neck and heads. ``compute_dtype``
+    float32 or bfloat16: the dtype of the forward's convolutions; the
+    parameters stay float32 either way (see the module docstring)."""
+
     def __init__(self, num_layers: int = 34, num_classes: int = 3,
-                 num_kpts: int = 9, num_alpha_bins: int = 12):
+                 num_kpts: int = 9, num_alpha_bins: int = 12,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        channels = ARCH_SETTINGS[num_layers][1]
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or "
+                             "bfloat16")
+        channels = ARCH_SETTINGS[num_layers][2]
         self.backbone = DLA(num_layers)
         self.neck = DLAUp(channels[START_LEVEL:])
         self.head = MonoConHeads(channels[START_LEVEL], num_classes, num_kpts,
                                  num_alpha_bins)
+        self.compute_dtype = compute_dtype
 
     def forward(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """image: (B, H, W, 3) normalised -> prediction dict at stride 4."""
-        feats = self.backbone(image.permute(0, 3, 1, 2))
-        return self.head(self.neck(feats))
+        """image: (B, H, W, 3) normalised -> prediction dict at stride 4,
+        float32."""
+        with torch.autocast(image.device.type, dtype=torch.bfloat16,
+                            enabled=self.compute_dtype == torch.bfloat16):
+            feats = self.backbone(image.permute(0, 3, 1, 2))
+            return self.head(self.neck(feats))
 
 
 def _he_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -83,14 +115,17 @@ def init_detector_(model: MonoConDetector, generator: torch.Generator) -> None:
 
 def create_detector(num_layers: int = 34, num_classes: int = 3,
                     generator: Optional[torch.Generator] = None,
-                    device: "str | torch.device | None" = None
+                    device: "str | torch.device | None" = None,
+                    compute_dtype: torch.dtype = torch.float32
                     ) -> MonoConDetector:
-    """A randomly initialised detector on ``device`` (``cuda`` unless the
-    caller names another), in channels_last. ``generator`` is a CPU
+    """A randomly initialised DLA-``num_layers`` detector (34, 46, 60 or
+    102) on ``device`` (``cuda`` unless the caller names another), in
+    channels_last, computing in ``compute_dtype``. ``generator`` is a CPU
     ``torch.Generator``; by default one seeded with 0."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = MonoConDetector(num_layers, num_classes)
+    model = MonoConDetector(num_layers, num_classes,
+                            compute_dtype=compute_dtype)
     init_detector_(model, generator)
     return model.to(device=device, memory_format=torch.channels_last)

@@ -1,7 +1,9 @@
-"""DLA (Deep Layer Aggregation) backbone, DLA-34.
+"""DLA (Deep Layer Aggregation) backbone: DLA-34, 46, 60 and 102.
 
 Port of ``monocon_tpu/models/dla.py`` with the plain stem: a 7x7 stride-1
-conv, then level0 and level1, then four aggregation trees. The JAX
+conv, then level0 and level1, then four aggregation trees of BasicBlocks
+(DLA-34) or Bottlenecks (the others), whose roots add a residual in
+DLA-102. The JAX
 package's W-block space-to-depth stem is a TPU layout for the same
 convolutions with the same parameters, so it has no counterpart here.
 Module names are the reference's torch keys (``base_layer.0``,
@@ -18,10 +20,15 @@ from torch import nn
 
 from .layers import batch_norm, conv_bn_relu_layers
 
-# (per-level depths, per-level channels) of the BasicBlock variants, whose
-# roots have no residual.
+# (block, per-level depths, per-level channels, residual root), as in the
+# JAX package (dla.py:399-404) and the reference.
 ARCH_SETTINGS = {
-    34: ((1, 1, 1, 2, 2, 1), (16, 32, 64, 128, 256, 512)),
+    34: ("basic", (1, 1, 1, 2, 2, 1), (16, 32, 64, 128, 256, 512), False),
+    46: ("bottleneck", (1, 1, 1, 2, 2, 1), (16, 32, 64, 64, 128, 256), False),
+    60: ("bottleneck", (1, 1, 1, 2, 3, 1), (16, 32, 128, 256, 512, 1024),
+         False),
+    102: ("bottleneck", (1, 1, 1, 3, 4, 1), (16, 32, 128, 256, 512, 1024),
+          True),
 }
 
 
@@ -44,36 +51,71 @@ class BasicBlock(nn.Module):
         return F.relu(out + residual)
 
 
-class Root(nn.Module):
-    """1x1 aggregation node over the concatenated children."""
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 -> 1x1 convs at half the width (expansion 2), with a
+    residual."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1):
+        super().__init__()
+        bottle = out_ch // 2
+        self.conv1 = nn.Conv2d(in_ch, bottle, 1, bias=False)
+        self.bn1 = batch_norm(bottle)
+        self.conv2 = nn.Conv2d(bottle, bottle, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn2 = batch_norm(bottle)
+        self.conv3 = nn.Conv2d(bottle, out_ch, 1, bias=False)
+        self.bn3 = batch_norm(out_ch)
+
+    def forward(self, x, residual=None):
+        if residual is None:
+            residual = x
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        return F.relu(out + residual)
+
+
+BLOCKS = {"basic": BasicBlock, "bottleneck": Bottleneck}
+
+
+class Root(nn.Module):
+    """1x1 aggregation node over the concatenated children; with
+    ``residual`` it adds the first child before the ReLU."""
+
+    def __init__(self, in_ch: int, out_ch: int, residual: bool):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, 1, bias=False)
         self.bn = batch_norm(out_ch)
+        self.residual = residual
 
     def forward(self, *children):
-        return F.relu(self.bn(self.conv(torch.cat(children, dim=1))))
+        x = self.bn(self.conv(torch.cat(children, dim=1)))
+        if self.residual:
+            x = x + children[0]
+        return F.relu(x)
 
 
 class Tree(nn.Module):
     """Recursive aggregation tree."""
 
-    def __init__(self, levels: int, in_ch: int, out_ch: int, stride: int = 1,
-                 level_root: bool = False, root_dim: int = 0):
+    def __init__(self, levels: int, block: str, in_ch: int, out_ch: int,
+                 stride: int = 1, level_root: bool = False, root_dim: int = 0,
+                 root_residual: bool = False):
         super().__init__()
         if root_dim == 0:
             root_dim = 2 * out_ch
         if level_root:
             root_dim += in_ch
         if levels == 1:
-            self.tree1 = BasicBlock(in_ch, out_ch, stride)
-            self.tree2 = BasicBlock(out_ch, out_ch)
-            self.root = Root(root_dim, out_ch)
+            self.tree1 = BLOCKS[block](in_ch, out_ch, stride)
+            self.tree2 = BLOCKS[block](out_ch, out_ch)
+            self.root = Root(root_dim, out_ch, root_residual)
         else:
-            self.tree1 = Tree(levels - 1, in_ch, out_ch, stride)
-            self.tree2 = Tree(levels - 1, out_ch, out_ch,
-                              root_dim=root_dim + out_ch)
+            self.tree1 = Tree(levels - 1, block, in_ch, out_ch, stride,
+                              root_residual=root_residual)
+            self.tree2 = Tree(levels - 1, block, out_ch, out_ch,
+                              root_dim=root_dim + out_ch,
+                              root_residual=root_residual)
         self.project = (
             nn.Sequential(nn.Conv2d(in_ch, out_ch, 1, bias=False),
                           batch_norm(out_ch))
@@ -106,8 +148,9 @@ class DLA(nn.Module):
         super().__init__()
         if num_layers not in ARCH_SETTINGS:
             raise ValueError(
-                f"DLA-{num_layers} is not ported; have {sorted(ARCH_SETTINGS)}")
-        levels, channels = ARCH_SETTINGS[num_layers]
+                f"no DLA-{num_layers}; the variants are "
+                f"{sorted(ARCH_SETTINGS)}")
+        block, levels, channels, residual_root = ARCH_SETTINGS[num_layers]
         self.channels = channels
         self.base_layer = nn.Sequential(
             *conv_bn_relu_layers(3, channels[0], kernel_size=7))
@@ -120,8 +163,8 @@ class DLA(nn.Module):
                                          channels[1], stride=2 if i == 0 else 1)])
         for i in range(2, 6):
             self.add_module(f"level{i}", Tree(
-                levels[i], channels[i - 1], channels[i], stride=2,
-                level_root=(i != 2)))
+                levels[i], block, channels[i - 1], channels[i], stride=2,
+                level_root=(i != 2), root_residual=residual_root))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = self.base_layer(x)

@@ -3,7 +3,9 @@
 Port of ``monocon_tpu/models/heads.py``. Each branch is the reference's
 ``Sequential`` (``heatmap_head.0`` conv, ``.1`` AttnBN, ``.2`` ReLU, ``.3``
 1x1 conv; ``dir_feat``/``dir_cls``/``dir_reg`` for the direction head), so
-that reference keys load as they are. Outputs are NHWC, float32.
+that reference keys load as they are. Outputs are NHWC, float32: under
+bfloat16 compute the convolutions' outputs are cast to float32 before the
+post-ops (sigmoid clamp, depth transform), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,8 +20,6 @@ from .layers import AttnBatchNorm
 
 EPS = 1e-12
 HEAT_MIN, HEAT_MAX = 1e-4, 1.0 - 1e-4
-# Width of each branch's hidden layer (DLA-34's).
-FEAT_CH = 64
 # Heatmap prior bias: -log((1 - p) / p), p = 0.1.
 PRIOR_BIAS = float(-math.log((1 - 0.1) / 0.1))
 
@@ -55,7 +55,9 @@ class MonoConHeads(nn.Module):
     def __init__(self, in_ch: int, num_classes: int = 3,
                  num_kpts: int = 9, num_alpha_bins: int = 12):
         super().__init__()
-        feat_ch = FEAT_CH
+        # Each branch's hidden width is the reference's: 64 for DLA-34/46,
+        # 128 for DLA-60/102, the width of the map the heads read.
+        feat_ch = in_ch
         widths = (num_classes, num_kpts, 2, 2, 2, 2 * num_kpts, 3, 2)
         for name, width in zip(_BRANCHES, widths):
             self.add_module(name, head_branch(in_ch, feat_ch, width))

@@ -63,15 +63,19 @@ class MomentsBatchNorm(nn.BatchNorm2d):
     more than 1 value per channel"); the JAX package instead gives a zero
     variance and a Bessel factor ``n / max(n - 1, 1)``. Doing the moments by
     hand keeps that, so a batch of one trains as it does in JAX.
+
+    A bfloat16 input is normalised in float32, from float32 moments, and
+    the result cast back, as flax's BatchNorm does under ``dtype=bfloat16``.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3)
-        n = x.numel() // x.shape[1]
-        mean = x.mean(dims)
-        var = (x - mean[None, :, None, None]).square().mean(dims)
+        n = xf.numel() // xf.shape[1]
+        mean = xf.mean(dims)
+        var = (xf - mean[None, :, None, None]).square().mean(dims)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
@@ -79,8 +83,9 @@ class MomentsBatchNorm(nn.BatchNorm2d):
                 var.detach() * (n / max(n - 1, 1)), alpha=m)
             self.num_batches_tracked.add_(1)
         scale = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean[None, :, None, None]) * scale[None, :, None, None]
-                + self.bias[None, :, None, None])
+        out = ((xf - mean[None, :, None, None]) * scale[None, :, None, None]
+               + self.bias[None, :, None, None])
+        return out.to(x.dtype)
 
 
 class AttnWeights(nn.Module):

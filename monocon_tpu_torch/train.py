@@ -3,10 +3,11 @@
     python -m monocon_tpu_torch.train --data_root /data/kitti \\
         --output_dir outputs/run1
 
-The flags of the root ``train.py``: --config_file (a YAML overlay; reading
-it needs PyYAML), --data_root, --output_dir, --num_epochs, --batch_size.
-Besides them: --set KEY VALUE (repeatable) sets one config key, e.g.
-``--set PERIOD.CKPT_PERIOD_STEPS 500``, with no YAML; --deterministic
+The flags of the root ``train.py``: --config_file (a YAML overlay such as
+``configs/kitti_v5e.yaml``, read without PyYAML), --data_root,
+--output_dir, --num_epochs, --batch_size. Besides them: --set KEY VALUE
+(repeatable) sets one config key after the file, e.g. ``--set
+TPU.GRAD_ACCUM_STEPS 2``; --deterministic
 makes cuDNN and the other CUDA ops pick deterministic algorithms, so that
 two runs give the same bits; --gpu_id runs on ``cuda:<gpu_id>``; --device
 names another device, e.g. ``cpu``. Without --device and without a card
@@ -37,7 +38,7 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="MonoCon training "
                                      "(PyTorch port)")
     parser.add_argument("--config_file", type=str, default=None,
-                        help="optional YAML config overlay (needs PyYAML)")
+                        help="optional YAML config overlay")
     parser.add_argument("--data_root", type=str, default=None,
                         help="KITTI root (overrides DATA.ROOT)")
     parser.add_argument("--output_dir", type=str, default=None,

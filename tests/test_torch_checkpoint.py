@@ -110,7 +110,7 @@ def test_midepoch_resume_is_bit_identical(runs):
     assert_same(engine_c.model.state_dict(), engine_a.model.state_dict())
     assert_same(engine_c.optimizer.state_dict(),
                 engine_a.optimizer.state_dict())
-    assert engine_c.scheduler.count == engine_a.scheduler.count == 3
+    assert engine_c.solver.count == engine_a.solver.count == 3
     assert engine_c.current_lr == engine_a.current_lr > 0
 
 
@@ -148,7 +148,7 @@ def test_finished_run_resumes_at_the_next_epoch(runs):
     assert engine.global_iters == engine_a.global_iters
     assert engine.entire_losses == engine_a.entire_losses
     assert engine.epoch_times == pytest.approx(engine_a.epoch_times)
-    assert engine.scheduler.count == 3
+    assert engine.solver.count == 3
     assert_same(engine.model.state_dict(), engine_a.model.state_dict())
 
 

@@ -292,15 +292,41 @@ def test_config_files_load_as_in_jax(name):
 
 
 @pytest.mark.parametrize("setting, item", [
-    ({"TPU": {"GRAD_ACCUM_STEPS": 2}, "is_test": False}, "item 13"),
-    ({"TPU": {"COMPUTE_DTYPE": "bfloat16"}}, "item 14"),
     ({"TPU": {"NUM_DEVICES": 4}}, "item 16"),
     ({"TPU": {"SPATIAL_SHARDS": 2}}, "item 16"),
     ({"TPU": {"MULTIHOST": True}}, "item 16"),
-], ids=["grad_accum", "bf16", "devices", "spatial", "multihost"])
+], ids=["devices", "spatial", "multihost"])
 def test_engine_refuses_what_the_port_does_not_run(setting, item):
     cfg = get_default_cfg()
-    cfg.merge_from_dict({k: v for k, v in setting.items() if k != "is_test"})
-    is_test = setting.get("is_test", True)
-    with pytest.raises(NotImplementedError, match=item):
-        MonoConEngine(cfg, is_test=is_test, device="cpu")
+    cfg.merge_from_dict(setting)
+    for is_test in (True, False):
+        with pytest.raises(NotImplementedError, match=item):
+            MonoConEngine(cfg, is_test=is_test, device="cpu")
+
+
+@pytest.mark.parametrize("setting", [
+    {"TPU": {"GRAD_ACCUM_STEPS": 2}},
+    {"TPU": {"COMPUTE_DTYPE": "bfloat16"}},
+], ids=["grad_accum", "bf16"])
+def test_engine_trains_what_the_port_once_refused(setting, slice_tree,
+                                                  tmp_path):
+    """Settings that earlier slices refused: a training engine builds and
+    takes one step in each."""
+    from monocon_tpu_torch.engine.train_step import train_step
+
+    cfg = get_default_cfg()
+    cfg.merge_from_dict(setting)
+    cfg.DATA.ROOT, cfg.OUTPUT_DIR, cfg.SEED = str(slice_tree), str(tmp_path), 0
+    cfg.DATA.BATCH_SIZE, cfg.DATA.NUM_WORKERS = 2, 1
+    cfg.DATA.TRAIN_SPLIT, cfg.DATA.AUGMENT = "val", False
+    cfg.TPU.PAD_HW = list(SLICE_HW)
+    engine = MonoConEngine(cfg, device="cpu")
+    batch = next(iter(engine.train_loader))
+    losses = train_step(engine.model, engine.optimizer, engine.solver,
+                        {"img": batch["img"], "img_hw": batch["img_hw"],
+                         "label": batch["label"]})
+    assert len(losses) == 11
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+    accumulating = setting["TPU"].get("GRAD_ACCUM_STEPS", 1) > 1
+    assert engine.solver.count == (0 if accumulating else 1)
+    assert engine.solver.mini_step == (1 if accumulating else 0)

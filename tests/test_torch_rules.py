@@ -1,7 +1,7 @@
 """Rules of the port that hold whatever the numbers: it imports nothing of
-JAX or of the JAX package, nor OpenCV or PIL, nor PyYAML outside reading a
-config file; its entry points never choose the CPU on their own; and
-``chip_smoke.py`` refuses to run without a CUDA device."""
+JAX or of the JAX package, nor OpenCV, PIL or PyYAML; its entry points
+never choose the CPU on their own; and ``chip_smoke.py`` refuses to run
+without a CUDA device."""
 
 import ast
 import os
@@ -15,9 +15,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "monocon_tpu",
-             "cv2", "PIL")
-# PyYAML: only to read a config file.
-YAML_READERS = ("monocon_tpu_torch/config/defaults.py",)
+             "cv2", "PIL", "yaml")
 
 
 def _port_sources():
@@ -40,8 +38,6 @@ def test_port_imports_no_jax(path):
     for module in _imported_modules(path):
         top = module.split(".")[0]
         assert top not in FORBIDDEN, (path, module)
-        if top == "yaml":
-            assert str(path.relative_to(ROOT)) in YAML_READERS, path
 
 
 def test_entry_points_refuse_to_pick_the_cpu(monkeypatch):
@@ -164,3 +160,48 @@ def test_train_path_needs_no_image_library(tmp_path):
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "trained 1 step" in proc.stdout
+
+
+# The shipped config file through the train CLI on the CPU, with the same
+# three imports refused: bfloat16 from the file, two micro-steps per
+# optimizer step, on a tiny synthetic tree.
+CONFIG_FILE_RUN = """
+import runpy, sys
+sys.modules["cv2"] = sys.modules["yaml"] = sys.modules["PIL"] = None
+from monocon_tpu_torch.data.synthetic import generate_kitti_dataset
+generate_kitti_dataset(sys.argv[1], num_train=5, num_val=1,
+                       image_hw=(64, 160), seed=0)
+sys.argv = ["train", *sys.argv[2:]]
+try:
+    runpy.run_module("monocon_tpu_torch.train", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+"""
+
+
+def test_train_cli_reads_the_shipped_config_without_pyyaml(tmp_path):
+    root, out = tmp_path / "kitti", tmp_path / "out"
+    overrides = {"DATA.ROOT": root, "OUTPUT_DIR": out, "DATA.BATCH_SIZE": 2,
+                 "DATA.NUM_WORKERS": 1, "DATA.CROP_HW": "[48, 128]",
+                 "TPU.PAD_HW": "[64, 160]", "SOLVER.OPTIM.NUM_EPOCHS": 1,
+                 "PERIOD.EVAL_PERIOD": -1, "PERIOD.LOG_PERIOD": 1,
+                 "TPU.GRAD_ACCUM_STEPS": 2}
+    args = ["--device", "cpu", "--config_file",
+            str(ROOT / "configs" / "kitti_v5e.yaml")]
+    for key, value in overrides.items():
+        args += ["--set", key, str(value)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", CONFIG_FILE_RUN, str(root), *args], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    saved = (out / "config.yaml").read_text()
+    assert "COMPUTE_DTYPE: \"bfloat16\"" in saved
+    assert "GRAD_ACCUM_STEPS: 2" in saved and "SEED: 1" in saved
+    final = out / "checkpoints" / "epoch_001_final"
+    container = torch.load(final / "state.pth", weights_only=True)
+    # 5 images at batch 2: 3 micro-steps, one optimizer step, and the
+    # third micro-step's gradient waiting in the accumulation.
+    solver = container["state_dict"]["scheduler"]
+    assert (solver["count"], solver["mini_step"]) == (1, 1)
+    assert proc.stdout.count("| Progress") == 3

@@ -60,17 +60,16 @@ def test_losses_match_jax_f64(num_valid, rng):
         assert float(ours["loss_wh"]) == 0.0 and float(ours["loss_dim"]) == 0.0
 
 
-def test_optimizer_matches_optax_over_20_steps(rng):
+def optax_parity_over_20_steps(rng, **settings):
     """20 steps of the same gradients (some above the clip norm of 35)
-    through optax's chain and through the port's clip + AdamW + one-cycle
-    schedule: LR, beta1 and params after every step."""
+    through the JAX package's optax chain and through the port's AdamW and
+    :class:`Solver`, both built with ``settings``: LR, beta1 and params after
+    every step."""
     import optax
 
-    from monocon_tpu.solver import (build_optimizer as jax_build,
-                                    one_cycle_momentum_schedule,
-                                    one_cycle_schedule)
-    from monocon_tpu_torch.solver.schedule import (build_optimizer,
-                                                   clip_by_global_norm_)
+    from monocon_tpu.solver import build_optimizer as jax_build
+    from monocon_tpu.solver import peek_hyperparams
+    from monocon_tpu_torch.solver.schedule import build_optimizer
 
     total, lr = 20, 2.25e-4
     shapes = {"a": (4, 3), "b": (7,)}
@@ -80,34 +79,41 @@ def test_optimizer_matches_optax_over_20_steps(rng):
 
     params = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
               for k, v in init.items()}
-    opt, sched = build_optimizer(params.values(), lr=lr, total_steps=total)
+    opt, solver = build_optimizer(params.values(), lr=lr, total_steps=total,
+                                  **settings)
     with jax.enable_x64(True):
-        tx = jax_build(lr=lr, total_steps=total)
+        tx = jax_build(lr=lr, total_steps=total, **settings)
         jparams = {k: jnp.asarray(v) for k, v in init.items()}
         state = tx.init(jparams)
-        lr_fn = one_cycle_schedule(lr, total)
-        b1_fn = one_cycle_momentum_schedule(0.95, total)
         for count, g in enumerate(grads):
             updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()},
                                        state, jparams)
             jparams = optax.apply_updates(jparams, updates)
+            hyper = peek_hyperparams(state)
 
             for k, p in params.items():
                 p.grad = torch.from_numpy(g[k].copy())
-            clip_by_global_norm_([p.grad for p in params.values()], 35.0)
-            sched.step()
-            opt.step()
+            assert solver.step()
             group = opt.param_groups[0]
-            np.testing.assert_allclose(group["lr"], float(lr_fn(count)),
+            np.testing.assert_allclose(group["lr"],
+                                       float(hyper["learning_rate"]),
                                        rtol=1e-12)
-            np.testing.assert_allclose(group["betas"][0], float(b1_fn(count)),
+            np.testing.assert_allclose(group["betas"][0], float(hyper["b1"]),
                                        rtol=1e-12)
             assert group["betas"][1] == 0.99 and group["eps"] == 1e-8
+            assert solver.count == count + 1
+            assert solver.current_lr == group["lr"]
             for k, p in params.items():
                 np.testing.assert_allclose(p.detach().numpy(),
                                            np.asarray(jparams[k]),
                                            err_msg=f"{k} at step {count}",
                                            **F64_TOL)
+
+
+def test_optimizer_matches_optax_over_20_steps(rng):
+    """The default solver: clip at 35, the one-cycle schedules, weight
+    decay 1e-5."""
+    optax_parity_over_20_steps(rng)
 
 
 def _adam_first_moment(opt_state):

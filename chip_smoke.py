@@ -73,7 +73,21 @@ result line:
    count after 4 batches is 2, the splat kernel launches 8 times, every
    loss is finite, 84 finite AP keys, and its wall time. The splat kernel
    launches twice per micro-batch on every training path;
-9. kernels line: one JSON object per hand-written kernel. ``launches`` is
+9. streaming and visualization: a synthetic drive of 96 frames at
+   375x1242 written as PNG with a ``calib_cam_to_cam.txt``; DLA-34 float32
+   with the serve phase's random weights streams it through
+   ``KITTIRawDataset``, ``BatchedFrames`` and ``pipelined_frames`` at B=1
+   and B=8 (frames/s end to end, the loop's wait for frame loading), and
+   unpipelined at both (the median per-frame wall at B=1 is the latency);
+   every frame's 2D and 3D vis result of each pipelined run equals its
+   unpipelined run's (labels exact, boxes within rtol 1e-6 / atol 1e-6);
+   ``python -m monocon_tpu_torch.test_raw --batch 8 --score_threshold 0``
+   and ``python -m monocon_tpu_torch.test --visualize`` (16 images of the
+   eval phase's tree) in subprocesses with OpenCV, PIL and PyYAML refused
+   write every expected PNG (read back with ``read_png``); the export's
+   seconds per frame and the visualize run's wall time. The splat kernel
+   launches 0 times on these paths;
+10. kernels line: one JSON object per hand-written kernel. ``launches`` is
    the count of run D, ``launches_by_path`` that of each path; ``ms``,
    ``plain_ms``, ``bound_ms`` and ``per_call`` are those of run D's
    batch (96x312), ``per_call_train_step`` those of the isolated step
@@ -135,6 +149,12 @@ LOOP_RESUME_SEED = 7   # run C starts with this SEED and must adopt 0
 LOOP_TIMED_EPOCHS = 2  # run D: epoch 1 warms up, epoch 2 is timed
 PHOTOMETRIC_IMAGES = 16
 TRAIN_CLI_TIMEOUT_S = 600
+STREAM_FRAMES = 96
+STREAM_HW = (375, 1242)
+STREAM_BATCHES = (1, 8)
+BEV_HW = (600, 1200)
+VIS_IMAGES = 16
+STREAM_CLI_TIMEOUT_S = 300
 # The configurations phase. bfloat16 card against CPU: the bound of
 # tests/test_torch_bf16.py, with the port's own CPU bfloat16-to-float32 gap
 # in the place of the JAX package's.
@@ -154,6 +174,21 @@ sys.modules["cv2"] = sys.modules["yaml"] = sys.modules["PIL"] = None
 sys.argv = ["train", *sys.argv[1:]]
 try:
     runpy.run_module("monocon_tpu_torch.train", run_name="__main__")
+except SystemExit as e:
+    if e.code:
+        raise
+from monocon_tpu_torch.ops import splat
+print("SPLAT_LAUNCHES", splat.launch_count)
+"""
+# A port CLI with OpenCV, PIL and PyYAML refused; then prints the splat
+# kernel's launches.
+REFUSED_RUN = """
+import runpy, sys
+sys.modules["cv2"] = sys.modules["yaml"] = sys.modules["PIL"] = None
+module = sys.argv[1]
+sys.argv = [module, *sys.argv[2:]]
+try:
+    runpy.run_module(module, run_name="__main__")
 except SystemExit as e:
     if e.code:
         raise
@@ -1612,6 +1647,193 @@ def phase_config_file(root: Path, out: Path) -> int:
     return launches[0]
 
 
+def write_drive(root: Path) -> "tuple[Path, Path]":
+    """A synthetic KITTI raw drive: ``STREAM_FRAMES`` PNG frames (smooth
+    random backgrounds, as the generator renders them) and a
+    ``calib_cam_to_cam.txt`` with the generator's P2."""
+    from monocon_tpu_torch.data.png import write_png
+    from monocon_tpu_torch.data.synthetic import DEFAULT_P2, render_scene
+
+    frames = root / "image_02" / "data"
+    frames.mkdir(parents=True)
+    for i in range(STREAM_FRAMES):
+        write_png(frames / f"{i:010d}.png",
+                  render_scene(np.random.default_rng((SEED, i)), STREAM_HW,
+                               [], DEFAULT_P2))
+    calib = root / "calib_cam_to_cam.txt"
+    calib.write_text("P_rect_02: " + " ".join(
+        f"{v:.6e}" for v in DEFAULT_P2.reshape(-1)) + "\n")
+    return frames, calib
+
+
+def run_refused(module: str, args, log_path: Path) -> "tuple[str, float]":
+    """``python -m module args`` with OpenCV, PIL and PyYAML refused;
+    (stdout, wall seconds). Fails unless it exits 0 and launched the splat
+    kernel 0 times."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", REFUSED_RUN, module, *args],
+                          cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True,
+                          timeout=STREAM_CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    log_path.write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"stream: {module} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    launches = [int(line.split()[1]) for line in proc.stdout.splitlines()
+                if line.startswith("SPLAT_LAUNCHES")]
+    if launches != [0]:
+        raise AssertionError(f"stream: {module} launched the splat kernel "
+                             f"{launches} times")
+    return proc.stdout, wall
+
+
+def check_pngs(folder: Path, names, hw) -> None:
+    from monocon_tpu_torch.data.png import read_png
+
+    got = sorted(p.name for p in folder.glob("*.png"))
+    if got != sorted(names):
+        raise AssertionError(f"stream: {folder} holds {len(got)} PNGs, "
+                             f"expected {len(names)}")
+    for name in names:
+        shape = read_png(folder / name).shape
+        if shape != (*hw, 3):
+            raise AssertionError(f"stream: {folder / name} is {shape}")
+
+
+def same_vis(got, want, what: str) -> "tuple[int, float]":
+    """Vis results frame by frame: labels equal, 2D and 3D boxes within
+    ``PIPELINE_TOL``. Returns (boxes compared, largest |diff|)."""
+    if len(got) != len(want):
+        raise AssertionError(f"stream: {what}: {len(got)} frames, "
+                             f"{len(want)} unpipelined")
+    count, worst = 0, 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        pairs = [(g["img_bbox"]["boxes_3d"], w["img_bbox"]["boxes_3d"]),
+                 (g["img_bbox"]["scores_3d"], w["img_bbox"]["scores_3d"]),
+                 *zip(g["img_bbox2d"], w["img_bbox2d"])]
+        if not np.array_equal(g["img_bbox"]["labels_3d"],
+                              w["img_bbox"]["labels_3d"]):
+            raise AssertionError(f"stream: {what} frame {i}: labels differ")
+        for a, b in pairs:
+            if a.shape != b.shape or not np.allclose(a, b, **PIPELINE_TOL):
+                raise AssertionError(f"stream: {what} frame {i}: {a} against "
+                                     f"{b}")
+            if b.size:
+                worst = max(worst, float(np.abs(a - b).max()))
+        count += len(w["img_bbox"]["labels_3d"])
+    return count, worst
+
+
+def phase_stream(tmp: Path, eval_root: Path) -> int:
+    """Streaming and visualization (phase 9). Returns the splat kernel's
+    launches on these paths (0)."""
+    import torch
+
+    from monocon_tpu_torch import create_detector
+    from monocon_tpu_torch.config import export_cfg, get_default_cfg
+    from monocon_tpu_torch.data.kitti_raw import KITTIRawDataset
+    from monocon_tpu_torch.data.transforms import default_raw_transforms
+    from monocon_tpu_torch.ops import splat
+    from monocon_tpu_torch.test_raw import make_stream
+    from monocon_tpu_torch.utils.streaming import pipelined_frames
+
+    t0 = time.perf_counter()
+    frames_dir, calib = write_drive(tmp / "drive")
+    log(f"[stream] wrote a drive of {STREAM_FRAMES} PNG frames at "
+        f"{STREAM_HW[0]}x{STREAM_HW[1]} in {time.perf_counter() - t0:.3f} s")
+    model = create_detector(34, generator=torch.Generator().manual_seed(SEED),
+                            device=DEVICE).eval()
+    pth = tmp / "stream_model.pth"
+    torch.save({"state_dict": {"model": model.state_dict()}}, pth)
+    dataset = KITTIRawDataset(str(frames_dir), str(calib),
+                              default_raw_transforms(device_normalize=True))
+    splat.launch_count = 0
+    for batch in STREAM_BATCHES:
+        frames, infer, finalize = make_stream(model, dataset, DEVICE, batch,
+                                              0.0)
+        finalize(infer(frames[0]), frames[0])      # warm-up
+        # Unpipelined: load, queue, wait and convert one batch at a time.
+        walls, want = [], []
+        for j in range(len(frames)):
+            t0 = time.perf_counter()
+            sample = frames[j]
+            want += finalize(infer(sample), sample)
+            walls.append(time.perf_counter() - t0)
+        # Pipelined, with the loop's wait for the next loaded batch: the
+        # time from a finalize's return to the next infer's call.
+        marks = {"wait": 0.0, "last": None}
+
+        def timed_infer(sample):
+            now = time.perf_counter()
+            marks["wait"] += now - marks["last"]
+            return infer(sample)
+
+        def timed_finalize(dispatched, sample):
+            out = finalize(dispatched, sample)
+            marks["last"] = time.perf_counter()
+            return out
+
+        got = []
+        t0 = marks["last"] = time.perf_counter()
+        for vis in pipelined_frames(frames, timed_infer, timed_finalize):
+            got += vis
+        stream_s = time.perf_counter() - t0
+        compared, worst = same_vis(got, want, f"B={batch}")
+        latency = (f"; latency (median per-frame wall, unpipelined) "
+                   f"{np.median(walls) * 1e3:.3f} ms" if batch == 1 else "")
+        log(f"[stream] B={batch}: {STREAM_FRAMES / stream_s:.3f} frames/s "
+            f"end to end pipelined ({stream_s:.3f} s), waited "
+            f"{marks['wait']:.3f} s ({marks['wait'] / stream_s:.1%}) for "
+            f"frame loading; unpipelined {STREAM_FRAMES / sum(walls):.3f} "
+            f"frames/s{latency}; {compared} boxes equal to the unpipelined "
+            f"run (labels exact, rtol 1e-6 / atol 1e-6), max |diff| "
+            f"{worst:.3g}")
+    if splat.launch_count:
+        raise AssertionError("stream: the splat kernel ran on the stream")
+    del model
+    torch.cuda.empty_cache()
+
+    out = tmp / "raw_results"
+    stdout, wall = run_refused(
+        "monocon_tpu_torch.test_raw",
+        ["--data_dir", str(frames_dir), "--calib_file", str(calib),
+         "--checkpoint_file", str(pth), "--save_dir", str(out), "--batch",
+         "8", "--score_threshold", "0"], tmp / "test_raw.log")
+    names = [f"{i:06d}.png" for i in range(STREAM_FRAMES)]
+    for item, hw in (("2d", STREAM_HW), ("3d", STREAM_HW), ("bev", BEV_HW)):
+        check_pngs(out / item, names, hw)
+    said = [line for line in stdout.splitlines()
+            if line.startswith(("Streamed", "Frames exported"))]
+    log(f"[stream] python -m monocon_tpu_torch.test_raw --batch 8 "
+        f"--score_threshold 0 (OpenCV, PIL, PyYAML refused): {wall:.3f} s "
+        f"wall; 3 x {STREAM_FRAMES} PNGs read back; it said: "
+        + " | ".join(said))
+
+    # test --visualize on 16 images of the eval tree: its (empty) train
+    # split file is given their ids.
+    ids = sorted(p.stem for p in (eval_root / "training" / "image_2").glob(
+        "*.png"))[:VIS_IMAGES]
+    (eval_root / "ImageSets" / "train.txt").write_text("\n".join(ids) + "\n")
+    cfg = get_default_cfg()
+    cfg.DATA.ROOT, cfg.DATA.TEST_SPLIT = str(eval_root), "train"
+    export_cfg(cfg, str(tmp / "vis.yaml"))
+    vis_out = tmp / "vis_results"
+    _, wall = run_refused(
+        "monocon_tpu_torch.test",
+        ["--config_file", str(tmp / "vis.yaml"), "--checkpoint_file",
+         str(pth), "--visualize", "--save_dir", str(vis_out)],
+        tmp / "visualize.log")
+    for item, hw in (("2d", EVAL_IMAGE_HW), ("3d", EVAL_IMAGE_HW),
+                     ("bev", BEV_HW)):
+        check_pngs(vis_out / item, [f"{i}.png" for i in ids], hw)
+    log(f"[stream] python -m monocon_tpu_torch.test --visualize on "
+        f"{VIS_IMAGES} images (OpenCV, PIL, PyYAML refused): {wall:.3f} s "
+        f"wall (process start, model, one pass, 3 x {VIS_IMAGES} PNGs read "
+        "back); splat launches 0 on both")
+    return splat.launch_count
+
+
 def main() -> int:
     import torch
 
@@ -1628,7 +1850,8 @@ def main() -> int:
     by_path = {"train_step": phase_train()}
     with tempfile.TemporaryDirectory() as tmp:
         phase_eval(Path(tmp))
-    by_path["eval"] = 0
+        by_path["eval"] = 0
+        by_path["stream"] = phase_stream(Path(tmp), Path(tmp) / "kitti")
     with tempfile.TemporaryDirectory() as tmp:
         loop_calls, loop_launches = phase_train_loop(Path(tmp))
         by_path.update(loop_launches)

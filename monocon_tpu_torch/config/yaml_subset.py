@@ -6,6 +6,9 @@ subset that the files in ``configs/`` and :func:`dump` use:
 
   * block mappings nested by indentation (spaces); a key with nothing after
     its colon holds the mapping indented below it, or else null;
+  * block sequences of scalars as a key's value: ``- item`` lines at the
+    key's indentation (as ``yaml.safe_dump`` writes them) or deeper, all
+    at one indentation;
   * ``#`` comments, on their own line or after a value;
   * flow sequences ``[...]`` closed on their line, nested, and the empty
     flow mapping ``{}``;
@@ -17,9 +20,10 @@ them (YAML 1.1): ``yes/no/on/off/true/false`` in three cases are booleans;
 and a sign in its exponent (``4.5e-4`` is a float, ``1e-5`` a string);
 integers take ``0b``, ``0x``, a leading ``0`` for octal, ``_`` and base-60
 ``1:30``. Anything else raises :class:`YAMLSubsetError` with the line
-number: block sequences, non-empty flow mappings, anchors, aliases, tags,
-block scalars, directives and document markers, scalars over several
-lines, tabs, duplicate keys, timestamps and merge keys.
+number: block sequences anywhere else or of mappings or sequences, empty
+sequence items, non-empty flow mappings, anchors, aliases, tags, block
+scalars, directives and document markers, scalars over several lines,
+tabs, duplicate keys, timestamps and merge keys.
 """
 
 from __future__ import annotations
@@ -253,7 +257,8 @@ class _Line:
 
 def _content_lines(text: str):
     """(line number, indentation, the line from its first non-space) of the
-    lines that hold more than a comment."""
+    lines that hold more than a comment. A ``- `` line is a block sequence
+    item, which :func:`safe_load` takes only as a key's value."""
     if text.startswith("\U0000FEFF"):
         text = text[1:]
     bad = _NON_PRINTABLE.search(text)
@@ -270,11 +275,30 @@ def _content_lines(text: str):
             continue
         marker = raw[:3] in ("---", "...") and raw[3:4] in ("", " ")
         if (marker or content[0] == "%"
-                or content[0] in "-?" and content[1:2] in ("", " ")):
+                or content[0] == "?" and content[1:2] in ("", " ")):
             raise YAMLSubsetError(
-                f"line {lineno}: block sequences, complex keys, directives "
-                f"and document markers are outside the subset: {raw!r}")
+                f"line {lineno}: complex keys, directives and document "
+                f"markers are outside the subset: {raw!r}")
         yield lineno, len(raw) - len(content), content
+
+
+def _is_item(content: str) -> bool:
+    return content[0] == "-" and content[1:2] in ("", " ")
+
+
+def _sequence_item(content: str, lineno: int) -> Any:
+    """The scalar of a block sequence item ``- value``."""
+    line = _Line(content, lineno)
+    line.pos = 1
+    if line.at_end():
+        raise line.error("empty block sequence items are outside the subset")
+    if line.peek() in ("[", "{"):
+        raise line.error("block sequences of sequences or mappings are "
+                         "outside the subset")
+    value = line.value(flow=False)
+    if not line.at_end():
+        raise line.error("unexpected text after the value")
+    return value
 
 
 def safe_load(text: str) -> Any:
@@ -283,13 +307,33 @@ def safe_load(text: str) -> Any:
     root = None
     levels: List[Tuple[int, Dict[Any, Any]]] = []   # (indent, mapping)
     open_key = None     # (indent, mapping, key) of a key with no value yet
+    sequence = None     # (indent, list) of the block sequence being read
     for lineno, indent, content in _content_lines(text):
+        item = _is_item(content)
+        if sequence is not None:
+            item_indent, items = sequence
+            if indent > item_indent or (item and indent == item_indent):
+                if not item or indent != item_indent:
+                    raise YAMLSubsetError(
+                        f"line {lineno}: a block sequence's items must be "
+                        f"scalars at one indentation: {content!r}")
+                items.append(_sequence_item(content, lineno))
+                continue
+            sequence = None
         if open_key is not None:
             parent_indent, parent, key = open_key
             open_key = None
+            if item and indent >= parent_indent:
+                parent[key] = [_sequence_item(content, lineno)]
+                sequence = (indent, parent[key])
+                continue
             if indent > parent_indent:
                 parent[key] = {}
                 levels.append((indent, parent[key]))
+        if item:
+            raise YAMLSubsetError(
+                f"line {lineno}: block sequences other than a key's value "
+                f"are outside the subset: {content!r}")
         if root is None:
             root = {}
             levels.append((indent, root))

@@ -1,5 +1,6 @@
 from .base_dataset import KittiMono3D, load_split_ids
 from .calib import Calibration
+from .kitti_raw import KITTIRawDataset
 from .labels import CLASS_TO_IDX, IDX_TO_CLASS, ObjectLabels
 from .loader import DataLoader, collate
 from .monocon_dataset import DEFAULT_FILTER_CONFIG, MonoConDataset, empty_labels
@@ -11,6 +12,7 @@ __all__ = [
     "DEFAULT_FILTER_CONFIG",
     "DataLoader",
     "IDX_TO_CLASS",
+    "KITTIRawDataset",
     "KittiMono3D",
     "MonoConDataset",
     "ObjectLabels",

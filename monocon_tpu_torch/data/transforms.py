@@ -6,10 +6,9 @@ OpenCV, which the card's machine does not have:
 
   * ``PhotometricDistortion`` converts RGB <-> HSV with OpenCV's float32
     ``COLOR_RGB2HSV`` / ``COLOR_HSV2RGB`` formulas, in C (``color.py``);
-  * ``RandomHorizontalFlip`` mirrors with a reversed view made contiguous.
-
-``Resize3D`` (``cv2.resize``, not in the default pipeline) is not ported,
-nor is the visualizer's ``keep_origin`` copy.
+  * ``RandomHorizontalFlip`` mirrors with a reversed view made contiguous;
+  * ``Resize3D`` resizes with :func:`resize_linear`, OpenCV's
+    ``INTER_LINEAR`` in numpy.
 
 Randomness: every random transform draws from an explicit
 ``numpy.random.Generator`` passed to ``Compose``, in the JAX package's
@@ -36,6 +35,79 @@ class Compose:
         rng = rng if rng is not None else np.random.default_rng()
         for t in self.transforms:
             sample = t(sample, rng)
+        return sample
+
+
+# OpenCV's fixed-point bilinear weights for 8-bit images: 11 fractional bits.
+_RESIZE_COEF_BITS = 11
+
+
+def _resize_taps(n_out: int, n_in: int):
+    """Source index pairs and float32 weights of the second of each pair,
+    as ``cv2.resize`` INTER_LINEAR computes them: half-pixel centres, the
+    offset in double, clamped at both edges."""
+    f = (np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5
+    s = np.floor(f)
+    frac = (f - s).astype(np.float32)
+    s = s.astype(np.int64)
+    edge = (s < 0) | (s >= n_in - 1)
+    frac[edge] = 0
+    s = np.clip(s, 0, n_in - 1)
+    return s, np.minimum(s + 1, n_in - 1), frac
+
+
+def resize_linear(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, out_hw[::-1])`` (INTER_LINEAR) of an (H, W, C)
+    uint8 or float32 image. uint8 goes through OpenCV's 11-bit weights and
+    its vectorised rounding, ``(((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >>
+    4)) >> 16) + 2) >> 2``: within one level of OpenCV's. float32 weighs in
+    float32."""
+    (h, w), (oh, ow) = img.shape[:2], tuple(out_hw)
+    if (h, w) == (oh, ow):
+        return img.copy()
+    y0, y1, fy = _resize_taps(oh, h)
+    x0, x1, fx = _resize_taps(ow, w)
+    if img.dtype == np.uint8:
+        one = 1 << _RESIZE_COEF_BITS
+        ax = [np.rint(a * one).astype(np.int32) for a in (1 - fx, fx)]
+        by = [np.rint(b * one).astype(np.int32) for b in (1 - fy, fy)]
+        src = img.astype(np.int32)
+        rows = (src[:, x0] * ax[0][None, :, None]
+                + src[:, x1] * ax[1][None, :, None]) >> 4
+        out = (((by[0][:, None, None] * rows[y0]) >> 16)
+               + ((by[1][:, None, None] * rows[y1]) >> 16) + 2) >> 2
+        return np.clip(out, 0, 255).astype(np.uint8)
+    src = img.astype(np.float32)
+    rows = src[:, x0] * (1 - fx)[None, :, None] + src[:, x1] * fx[None, :, None]
+    return rows[y0] * (1 - fy)[:, None, None] + rows[y1] * fy[:, None, None]
+
+
+class Resize3D:
+    """Resize image + rescale calib, 2D labels, keypoints; records
+    ``scale_hw`` (reference default_transforms.py:15-49)."""
+
+    def __init__(self, target_hw: Optional[Tuple[int, int]] = None):
+        if isinstance(target_hw, int):
+            target_hw = (target_hw, target_hw)
+        self.target_hw = target_hw
+
+    def __call__(self, sample: Dict, rng) -> Dict:
+        if self.target_hw is None:
+            return sample
+        img = sample["img"]
+        ori_hw = img.shape[:2]
+        sample["img"] = resize_linear(img, self.target_hw)
+        scale_hw = np.array(self.target_hw) / np.array(ori_hw)
+        sample["img_metas"]["scale_hw"] = scale_hw
+        sample["img_metas"]["ori_shape"] = self.target_hw
+        sample["calib"].rescale(scale_hw[1], scale_hw[0])
+        label = sample["label"]
+        if label is not None:   # a raw frame has none
+            label["gt_bboxes"] *= np.array([scale_hw[1], scale_hw[0]] * 2,
+                                           np.float32)
+            label["centers2d"] *= scale_hw[::-1].astype(np.float32)
+            label["gt_kpts_2d"] *= np.tile(scale_hw[::-1], 9).astype(
+                np.float32)
         return sample
 
 
@@ -367,20 +439,23 @@ def apply_crop(sample: Dict, coord, area_thres: float, hide_kpts: bool) -> Dict:
 
 
 class Normalize:
-    """(img - mean) / std in 0-255 space (reference
-    default_transforms.py:376-407). The original copy the visualizer keeps
-    (``keep_origin``) comes with it (ROADMAP item 12)."""
+    """(img - mean) / std in 0-255 space; optional original copy for viz
+    (reference default_transforms.py:376-407)."""
 
     IMAGENET_MEAN = (123.675, 116.28, 103.53)
     IMAGENET_STD = (58.395, 57.12, 57.375)
 
-    def __init__(self, mean=IMAGENET_MEAN, std=IMAGENET_STD):
+    def __init__(self, mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                 keep_origin: bool = False):
         self.mean = np.asarray(mean, np.float32).reshape(1, 1, 3)
         self.std = np.asarray(std, np.float32).reshape(1, 1, 3)
         self.inv_std = (1.0 / self.std).astype(np.float32)
+        self.keep_origin = keep_origin
 
     def __call__(self, sample: Dict, rng) -> Dict:
         img = sample["img"].astype(np.float32)
+        if self.keep_origin:
+            sample["ori_img"] = img.copy()
         # In-place (img - mean) * (1/std): two passes, no temporaries.
         img -= self.mean
         img *= self.inv_std
@@ -458,3 +533,21 @@ def default_test_transforms(device_normalize: bool = False) -> List:
         # on the device: the same numerics, 4x fewer bytes.
         return [Pad(32)]
     return [Normalize(), Pad(32)]
+
+
+class KeepOrigin:
+    """Stash the current (unnormalized) image as ``ori_img`` for video
+    export, like Normalize(keep_origin=True) does, without normalizing."""
+
+    def __call__(self, sample: Dict, rng) -> Dict:
+        sample["ori_img"] = sample["img"].copy()
+        return sample
+
+
+def default_raw_transforms(device_normalize: bool = False) -> List:
+    """Raw-sequence inference keeps the unnormalized image for video export
+    (reference dataset/kitti_raw_dataset.py:15-20). ``device_normalize``
+    ships raw uint8 frames and normalizes on the device."""
+    if device_normalize:
+        return [KeepOrigin(), Pad(32)]
+    return [Normalize(keep_origin=True), Pad(32)]

@@ -27,9 +27,15 @@ The loss of each step stays on the device; the host reads them in one
 stacked copy on log steps and at the end of the epoch, never one per
 step.
 
+``train(resume_from=...)`` resumes the run of a checkpoint directory (or
+its ``state.pth``) named by the caller, after the config is exported, in
+place of whatever auto-resume found under ``OUTPUT_DIR``.
+
 The evaluation loop keeps the card and the host working at once, as the
 JAX engine's does: batch i+1's forward is queued before batch i's
-detections are converted to KITTI annotations on the host.
+detections are converted to KITTI annotations on the host
+(:func:`dispatch_detection` and :func:`fetch_detection`, which the raw
+stream of ``test_raw.py`` shares).
 
   * The loader's thread copies each batch from a pinned canvas on a copy
     stream; the compute stream waits on that copy's event.
@@ -40,6 +46,9 @@ detections are converted to KITTI annotations on the host.
     recorded. Then the next batch is queued. Conversion waits on that event
     only, not on the next batch's forward, which a plain ``.cpu()`` would.
   * The last batch is as short as the split leaves it: no padding rows.
+
+``visualize`` draws every test image's detections in the visualization
+format (2D boxes, 3D wireframes, bird's-eye view) into PNG files.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -66,6 +75,7 @@ from ..utils.convert import (
     convert_to_kitti_2d,
     convert_to_kitti_3d,
     split_batch_detections,
+    to_vis_format,
 )
 from ..utils.logging_utils import (MetricsWriter, count_params, progress_bar,
                                    tprint)
@@ -81,6 +91,44 @@ from .train_step import train_step
 
 TEST_SCORE_THRESHOLD = 0.4  # reference DEFAULT_TEST_CFG (monocon_heads.py:30-35)
 EVAL_CLASSES = ("Pedestrian", "Cyclist", "Car")
+
+
+def dispatch_detection(model, image: torch.Tensor, img_hw: torch.Tensor,
+                       p2: torch.Tensor, events: Optional[list] = None):
+    """Queue the normalisation, forward and decode of a (B, H, W, 3) batch
+    already on the model's device, and on the card also the copy of the
+    decoded arrays into pinned host memory. Returns (decoded, the copy's
+    event or None) without waiting for the card. ``events``, on the card,
+    receives the (start, end) CUDA events around the device work."""
+    cuda = image.device.type == "cuda"
+    if events is not None and cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+    with torch.no_grad():
+        image = normalize_if_raw(image, img_hw)
+        decoded = decode_predictions(model(image), p2,
+                                     (image.shape[1], image.shape[2]))
+    if not cuda:
+        return decoded, None
+    if events is not None:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        events.append((start, end))
+    host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            for k, v in decoded.items()}
+    for k, v in decoded.items():
+        host[k].copy_(v, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record()
+    return host, copied
+
+
+def fetch_detection(dispatched) -> Dict[str, np.ndarray]:
+    """Wait for a :func:`dispatch_detection` result's copy; its arrays."""
+    decoded, copied = dispatched
+    if copied is not None:
+        copied.synchronize()
+    return {k: v.numpy() for k, v in decoded.items()}
 
 
 class MonoConEngine:
@@ -222,13 +270,12 @@ class MonoConEngine:
                 if loader is not None:
                     loader.seed = int(saved_seed)
         step_in_epoch = int(meta.get("step_in_epoch", 0))
-        if step_in_epoch > 0:
-            # Taken mid-epoch: re-enter the SAME epoch and skip its trained
-            # prefix (the loader's per-epoch order is deterministic).
-            self.epochs = int(meta["epoch"])
-            self._resume_step_in_epoch = step_in_epoch
-        else:
-            self.epochs = int(meta["epoch"]) + 1
+        # Taken mid-epoch: re-enter the SAME epoch and skip its trained
+        # prefix (the loader's per-epoch order is deterministic). Taken at
+        # an epoch's end: start the next, with no skip left from an earlier
+        # load (auto-resume, then train(resume_from=...)).
+        self._resume_step_in_epoch = step_in_epoch
+        self.epochs = int(meta["epoch"]) + (0 if step_in_epoch > 0 else 1)
         self.global_iters = int(meta["global_iters"])
         # Loss/time history (reference base_engine.py:191-219), so that the
         # moving average and the ETA continue across a resume.
@@ -347,15 +394,25 @@ class MonoConEngine:
         print(f" - Batch/Seed  : {self.cfg.DATA.BATCH_SIZE} / {self.cfg.SEED}")
         print("=" * 70)
 
-    def train(self) -> None:
+    def train(self, resume_from: Optional[str] = None) -> None:
         """Train from the current epoch to NUM_EPOCHS, evaluating and saving
-        a checkpoint every EVAL_PERIOD epochs, and the final checkpoint."""
+        a checkpoint every EVAL_PERIOD epochs, and the final checkpoint.
+        ``resume_from``, a checkpoint directory or its ``state.pth``, is
+        loaded after the config is exported, as the JAX engine does; the
+        run then continues its epoch and step counters."""
         if self.epochs > self.target_epochs:
             raise ValueError(
                 f"the run is at epoch {self.epochs}, past SOLVER.OPTIM."
                 f"NUM_EPOCHS={self.target_epochs}: nothing to train")
         self._print_engine_info()
         export_cfg(self.cfg, os.path.join(self.root, "config.yaml"))
+        if resume_from is not None:
+            path = resume_from
+            if os.path.basename(path) == STATE_FILE:
+                path = os.path.dirname(path) or "."
+            self.load_checkpoint(path)
+            tprint(f"Training resumes from '{resume_from}'. "
+                   f"(Start Epoch: {self.epochs})")
         tprint(f"Training proceeds from epoch {self.epochs} to "
                f"epoch {self.target_epochs}.")
         tprint(f"Result files are saved to '{self.root}'.")
@@ -422,39 +479,19 @@ class MonoConEngine:
 
     def _dispatch_eval(self, batch: Dict[str, Any], events=None):
         """Queue the forward and decode of a loader batch; on the card also
-        the copy of the result to pinned host memory. Returns (decoded,
-        the copy's event or None)."""
+        the copy of the result to pinned host memory."""
         dev = use_on_current_stream(batch)
-        if events is not None:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
-        with torch.no_grad():
-            image = normalize_if_raw(dev["img"], dev["img_hw"])
-            pred = self.model(image)
-            decoded = decode_predictions(pred, dev["p2"],
-                                         (image.shape[1], image.shape[2]))
-        if self.device.type != "cuda":
-            return decoded, None
-        if events is not None:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            events.append((start, end))
-        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                for k, v in decoded.items()}
-        for k, v in decoded.items():
-            host[k].copy_(v, non_blocking=True)
-        copied = torch.cuda.Event()
-        copied.record()
-        return host, copied
+        return dispatch_detection(self.model, dev["img"], dev["img_hw"],
+                                  dev["p2"], events)
 
-    def _finalize_eval(self, dispatched, batch: Dict[str, Any]):
+    def _finalize_eval(self, dispatched, batch: Dict[str, Any],
+                       vis_format: bool = False):
         """Wait for a dispatched batch's decoded arrays and convert them to
-        KITTI annotations."""
-        decoded, copied = dispatched
-        if copied is not None:
-            copied.synchronize()
-        per_image = split_batch_detections(
-            {k: v.numpy() for k, v in decoded.items()}, TEST_SCORE_THRESHOLD)
+        KITTI annotations, or to the visualization format."""
+        per_image = split_batch_detections(fetch_detection(dispatched),
+                                           TEST_SCORE_THRESHOLD)
+        if vis_format:
+            return to_vis_format(per_image)
         return {
             "img_bbox": convert_to_kitti_3d(
                 per_image, batch["img_metas"], batch["calib"]
@@ -467,8 +504,32 @@ class MonoConEngine:
         container["img_bbox"].extend(result["img_bbox"])
         container["img_bbox2d"].extend(result["img_bbox2d"])
 
-    def run_eval_batch(self, batch: Dict[str, Any]):
+    def run_eval_batch(self, batch: Dict[str, Any], vis_format: bool = False):
         """One loader batch through the whole path, unpipelined."""
         self.model.eval()
         with self._on_device():
-            return self._finalize_eval(self._dispatch_eval(batch), batch)
+            return self._finalize_eval(self._dispatch_eval(batch), batch,
+                                       vis_format=vis_format)
+
+    def visualize(self, output_dir: str,
+                  draw_items: Sequence[str] = ("2d", "3d", "bev")) -> None:
+        """Draw each test image's detections: one PNG per image and item
+        under ``output_dir/<item>/``, named as the image."""
+        from ..utils.visualizer import Visualizer
+
+        vis_container: List[Dict[str, Any]] = []
+        scale_hw = None
+        for batch in self.test_loader:
+            if scale_hw is None and batch["img_metas"].get("scale_hw"):
+                scale_hw = batch["img_metas"]["scale_hw"][0]
+            vis_container.extend(self.run_eval_batch(batch, vis_format=True))
+        visualizer = Visualizer(self.test_dataset, vis_container,
+                                scale_hw=scale_hw)
+        plot = {"2d": visualizer.plot_bboxes_2d,
+                "3d": visualizer.plot_bboxes_3d, "bev": visualizer.plot_bev}
+        for item in draw_items:
+            save_dir = os.path.join(output_dir, item)
+            os.makedirs(save_dir, exist_ok=True)
+            for idx in range(len(self.test_dataset)):
+                name = os.path.basename(self.test_dataset.image_path(idx))
+                plot[item](idx, save_path=os.path.join(save_dir, name))

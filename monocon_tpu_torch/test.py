@@ -1,16 +1,17 @@
-"""Evaluate a MonoCon checkpoint on KITTI with the port, on the card.
+"""Evaluate or visualize a MonoCon checkpoint on KITTI with the port, on
+the card.
 
     python -m monocon_tpu_torch.test --checkpoint_file model.pth \\
-        --data_root /data/kitti --evaluate
+        --data_root /data/kitti --evaluate --visualize --save_dir vis
 
 The flags of the root ``test.py``: --config_file, --checkpoint_file (a
 reference-format ``.pth``; an Orbax directory of the JAX package must be
 exported first with ``scripts/export_torch_ckpt.py``), --data_root,
 --gpu_id (runs on ``cuda:<gpu_id>``), --evaluate, --visualize, --save_dir.
 ``--device`` names another device, e.g. ``cpu``; without it and without a
-card the command fails. ``--visualize`` is refused: the visualizer draws
-with an image library that the card's machine does not have (ROADMAP item
-12).
+card the command fails. ``--visualize`` writes one PNG per test image
+and item under ``--save_dir``: ``2d/``, ``3d/`` and ``bev/``, each named
+as its image (``MonoConEngine.visualize``).
 """
 
 from __future__ import annotations
@@ -40,12 +41,6 @@ def parse_args():
 
 def main() -> int:
     args = parse_args()
-    if args.visualize:
-        print("--visualize is not ported: the visualizer needs an image "
-              "library for drawing and video (ROADMAP item 12)",
-              file=sys.stderr)
-        return 2
-
     from .config import get_default_cfg, load_cfg
     from .device import resolve_device
     from .engine.engine import MonoConEngine
@@ -64,6 +59,9 @@ def main() -> int:
     print(f"Checkpoint '{args.checkpoint_file}' loaded.", flush=True)
     if args.evaluate:
         engine.evaluate()
+    if args.visualize:
+        engine.visualize(args.save_dir, draw_items=["2d", "3d", "bev"])
+        print(f"Visualizations saved to '{args.save_dir}'.", flush=True)
     return 0
 
 

@@ -8,8 +8,7 @@ Device code hands over fixed-shape ``(B, K)`` arrays + scores; the
 score-threshold filter and per-image ragged structures first appear here,
 on the host, after the single device->host transfer.
 
-A copy of ``monocon_tpu/utils/convert.py``, less ``to_vis_format``, which
-comes with the visualizer (ROADMAP item 12).
+A copy of ``monocon_tpu/utils/convert.py``.
 """
 
 from __future__ import annotations
@@ -59,6 +58,29 @@ def split_batch_detections(
             }
         )
     return results
+
+
+def to_vis_format(per_image: List[Dict[str, np.ndarray]], num_classes: int = 3
+                  ) -> List[Dict[str, Any]]:
+    """Per-image detections -> the reference visualization format
+    ({'img_bbox': {...}, 'img_bbox2d': [per-class (N,5)]})."""
+    out = []
+    for det in per_image:
+        labels = det["labels"]
+        by_class = [
+            det["bboxes_2d"][labels == c] for c in range(num_classes)
+        ]
+        out.append(
+            {
+                "img_bbox": {
+                    "boxes_3d": det["bboxes_3d"],
+                    "scores_3d": det["scores"],
+                    "labels_3d": labels,
+                },
+                "img_bbox2d": by_class,
+            }
+        )
+    return out
 
 
 def _scale_vector(img_metas: Dict[str, Any]) -> np.ndarray:

@@ -33,7 +33,7 @@ from monocon_tpu_torch.models.detector import create_detector
 from monocon_tpu_torch.solver.schedule import build_optimizer
 from monocon_tpu_torch.utils.weights import state_dict_from_jax
 from test_ops_parity import random_label_batch
-from torch_port_helpers import perturb_variables
+from torch_port_helpers import default_threads, perturb_variables  # noqa: F401
 
 HW = (64, 96)
 FACTOR = 3.0
@@ -75,6 +75,7 @@ def port_bf16(variables):
 
 
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.usefixtures("default_threads")
 def test_forward_within_jax_bf16_gap(weights, train):
     """Every head map; in train mode also every BN running stat, whose
     floor is one epsilon of what the forward changed in it."""

@@ -1,6 +1,7 @@
 """The port's YAML reader (``monocon_tpu_torch/config/yaml_subset.py``)
 against PyYAML's ``yaml.safe_load``: every file in ``configs/``, the dump of
-the default tree, hypothesis-drawn documents of the subset and dumped
+the default tree, the ``config.yaml`` that the JAX package writes (PyYAML's
+block sequences), hypothesis-drawn documents of the subset and dumped
 trees, and the constructs outside the subset, which raise with their line
 number."""
 
@@ -11,6 +12,8 @@ from pathlib import Path
 
 import pytest
 import yaml
+
+import torch_port_helpers  # noqa: F401 -- caps torch's threads
 from hypothesis import assume, given, settings
 from hypothesis import strategies as st
 
@@ -83,6 +86,29 @@ def test_default_tree_dump_reads_back(tmp_path):
     assert same(load_cfg(str(path)).to_plain_dict(), want)
 
 
+@pytest.mark.parametrize("source", ["default", *sorted(
+    p.name for p in (ROOT / "configs").glob("*.yaml"))])
+def test_reads_the_jax_packages_config_dump(source, tmp_path):
+    """The JAX engine writes the run's config with ``yaml.safe_dump(...,
+    default_flow_style=False)``: lists as block sequences at their key's
+    indentation. The port reads that file as PyYAML does, and as the JAX
+    tree it was written from."""
+    from monocon_tpu.config import export_cfg as jax_export_cfg
+    from monocon_tpu.config import get_default_cfg as jax_default_cfg
+    from monocon_tpu.config import load_cfg as jax_load_cfg
+
+    cfg = (jax_default_cfg() if source == "default"
+           else jax_load_cfg(str(ROOT / "configs" / source)))
+    path = tmp_path / "config.yaml"
+    jax_export_cfg(cfg, str(path))
+    text = path.read_text()
+    assert "\n  - " in text or "\n- " in text  # a block sequence is there
+    want = cfg.to_plain_dict()
+    assert same(yaml.safe_load(text), want)
+    assert same(safe_load(text), want)
+    assert same(load_cfg(str(path)).to_plain_dict(), want)
+
+
 # ------------------------------------------------------- drawn documents
 TIMESTAMP_LIKE = re.compile(r"[0-9]{4}-")
 PLAIN = (st.sampled_from(SPECIAL)
@@ -104,6 +130,7 @@ VALUE = PLAIN | QUOTED | st.just("{}") | st.just("") | st.lists(
     FLOW_ITEM, max_size=4).map(lambda items: "[" + ", ".join(items) + "]")
 KEY = (PLAIN.filter(lambda t: t.lower() not in (".nan", "nan"))
        | QUOTED)
+ITEM = PLAIN | QUOTED
 COMMENT = st.sampled_from(["", "  # a comment", " #", "   # x: [1, 'a'"])
 
 
@@ -114,8 +141,9 @@ def _key_value(text):
 @st.composite
 def documents(draw):
     """Nested block mappings (indent steps of 1 to 4 spaces) of plain,
-    quoted, flow-list, ``{}`` and empty values, with comments and blank
-    lines between and after them."""
+    quoted, flow-list, ``{}`` and empty values and of block sequences of
+    scalars (indentless, as PyYAML writes them, or indented), with
+    comments and blank lines between and after them."""
     lines = []
 
     def mapping(depth, indent):
@@ -124,9 +152,15 @@ def documents(draw):
         assume(len(dict.fromkeys(resolved)) == len(keys))
         pad = " " * indent
         for key in keys:
-            if depth < 3 and draw(st.integers(0, 3)) == 0:
+            kind = draw(st.integers(0, 5))
+            if depth < 3 and kind == 0:
                 lines.append(f"{pad}{key}:{draw(COMMENT)}")
                 mapping(depth + 1, indent + draw(st.integers(1, 4)))
+            elif kind == 1:
+                lines.append(f"{pad}{key}:{draw(COMMENT)}")
+                items = " " * (indent + draw(st.integers(0, 3)))
+                for value in draw(st.lists(ITEM, min_size=1, max_size=4)):
+                    lines.append(f"{items}- {value}{draw(COMMENT)}")
             else:
                 lines.append(f"{pad}{key}: {draw(VALUE)}{draw(COMMENT)}")
             lines.extend(draw(st.lists(st.sampled_from(
@@ -177,7 +211,15 @@ def test_dumped_trees_read_back(tree):
     ("A: !!str 1\n", 1),
     ("A:\n  B: |\n    text\n", 2),
     ("A: >\n  folded\n", 1),
-    ("A:\n  - 1\n  - 2\n", 2),
+    ("A:\n  - B: 1\n  - 2\n", 2),
+    ("A:\n- [1, 2]\n", 2),
+    ("A:\n  - - 1\n", 2),
+    ("A:\n- {}\n", 2),
+    ("A:\n  - 1\n    - 2\n", 3),
+    ("A:\n  - 1\n - 2\n", 3),
+    ("A:\n-\n", 2),
+    ("- 1\n", 1),
+    ("A: 1\n- 2\n", 2),
     ("A: {B: 1}\n", 1),
     ("A:\n\tB: 1\n", 2),
     ("A: 1\t# tab\n", 1),
@@ -197,7 +239,9 @@ def test_dumped_trees_read_back(tree):
     ("A: \"\\q\"\n", 1),
     ("A: 1\nB: \x07\n", 2),
 ], ids=["anchor", "alias", "tag", "literal block", "folded block",
-        "block sequence", "flow mapping", "tab indent", "tab after value",
+        "block sequence", "flow sequence item", "nested block sequence",
+        "flow mapping item", "deeper item", "shallower item", "empty item",
+        "root sequence", "sequence after a value", "flow mapping", "tab indent", "tab after value",
         "duplicate key", "nested duplicate", "multi-line plain",
         "multi-line flow", "multi-line quoted", "document marker",
         "directive", "timestamp", "merge key", "nested mapping in a value",

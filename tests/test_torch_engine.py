@@ -1,8 +1,13 @@
 """The port's training engine against the JAX engine, step by step over
-one epoch whose last batch is short. (Resume and checkpoints:
-``test_torch_checkpoint.py``.)"""
+one epoch whose last batch is short; ``train(resume_from=...)`` against
+auto-resume, and its counters against the JAX engine's. (Auto-resume and
+checkpoints: ``test_torch_checkpoint.py``.)"""
 
+import json
 import math
+import os
+import shutil
+import types
 
 import jax
 import numpy as np
@@ -17,7 +22,7 @@ from monocon_tpu_torch.config import get_default_cfg
 from monocon_tpu_torch.engine.engine import MonoConEngine
 from monocon_tpu_torch.solver.schedule import WEIGHT_DECAY
 from monocon_tpu_torch.utils.weights import state_dict_from_jax
-from torch_port_helpers import F32_TOL
+from torch_port_helpers import F32_TOL, assert_same, default_threads  # noqa: F401
 
 IMAGE_HW, CROP_HW = (96, 320), (64, 256)
 LOSS_KEYS = 11
@@ -118,6 +123,7 @@ def _relative_errors(ours, theirs):
     return (num / den) ** 0.5, per_tensor
 
 
+@pytest.mark.usefixtures("default_threads")
 def test_engine_matches_jax_step_by_step(jax_run, tree, tmp_path,
                                          monkeypatch):
     """The same tree, seed and augmentation through both engines' epoch.
@@ -229,3 +235,111 @@ def test_engine_matches_jax_step_by_step(jax_run, tree, tmp_path,
         np.testing.assert_allclose(lr, jax_lr, rtol=1e-6, err_msg=f"step {i}")
     np.testing.assert_allclose(mean, jax_mean, **F32_TOL)
     assert all(isinstance(v, float) for v in engine.entire_losses)
+
+
+# ------------------------------------------------------------- resume_from
+class _FirstBatch:
+    """A train loader cut after its first batch: a run stopped right after
+    the checkpoint of step 1."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        yield next(iter(self.loader))
+
+
+@pytest.fixture(scope="module")
+def resume_points(tree, tmp_path_factory):
+    """Two checkpoints of one run, copied aside: ``mid``, taken after step
+    1 of epoch 1 (of 3), and ``end``, the final one of epoch 1."""
+    out = tmp_path_factory.mktemp("resume_source")
+    keep = tmp_path_factory.mktemp("resume_points")
+    engine = MonoConEngine(make_cfg(tree, out, CKPT_PERIOD_STEPS=1),
+                           device="cpu")
+    engine.train_loader = _FirstBatch(engine.train_loader)
+    engine.train_one_epoch()
+    points = {"mid": shutil.copytree(out / "checkpoints" / "epoch_001",
+                                     keep / "mid" / "epoch_001")}
+    MonoConEngine(make_cfg(tree, out, CKPT_PERIOD_STEPS=1),
+                  device="cpu").train()
+    points["end"] = shutil.copytree(out / "checkpoints" / "epoch_001_final",
+                                    keep / "end" / "epoch_001_final")
+    return points
+
+
+@pytest.mark.parametrize("point", ["mid", "end", "end_over_mid"])
+def test_train_resume_from_equals_auto_resume(point, resume_points, tree,
+                                              tmp_path):
+    """``train(resume_from=...)`` into a fresh OUTPUT_DIR, with another
+    SEED, against auto-resume from a copy of the same checkpoint: the same
+    counters, data seed, loss history (the next steps' losses included),
+    weights, BN state and AdamW state, bit for bit on the CPU. The ``end``
+    checkpoint is named by its ``state.pth``, ``mid`` by its directory;
+    ``end_over_mid`` names ``end`` to an engine that auto-resumed ``mid``
+    (the mid-epoch step count must not survive into the next epoch)."""
+    source = resume_points[point.split("_")[0]]
+    epochs = 1 if point == "mid" else 2
+    if point == "end_over_mid":
+        shutil.copytree(resume_points["mid"],
+                        tmp_path / "named" / "checkpoints" / "epoch_001")
+    cfg = make_cfg(tree, tmp_path / "named")
+    cfg.SOLVER.OPTIM.NUM_EPOCHS = epochs
+    cfg.SEED = 123
+    named = MonoConEngine(cfg, device="cpu")
+    named.train(resume_from=str(source / "state.pth" if point != "mid"
+                                else source))
+    shutil.copytree(source, tmp_path / "auto" / "checkpoints" / source.name)
+    cfg = make_cfg(tree, tmp_path / "auto")
+    cfg.SOLVER.OPTIM.NUM_EPOCHS = epochs
+    auto = MonoConEngine(cfg, device="cpu")
+    auto.train()
+    assert (named.epochs, named.global_iters, named.cfg.SEED) == (
+        auto.epochs, auto.global_iters, auto.cfg.SEED) == (
+        epochs, 3 * epochs + 1, 0)
+    assert named.entire_losses == auto.entire_losses
+    assert len(auto.entire_losses) == 3 * epochs
+    assert_same(named.model.state_dict(), auto.model.state_dict())
+    assert_same(named.optimizer.state_dict(), auto.optimizer.state_dict())
+    assert named.solver.count == auto.solver.count == 3 * epochs
+    assert os.path.isfile(tmp_path / "named" / "config.yaml")
+
+
+@pytest.mark.parametrize("point", ["mid", "end"])
+def test_resume_counters_equal_jax(point, resume_points, tree, tmp_path,
+                                   monkeypatch):
+    """The epoch, step-in-epoch, iteration and data-seed arithmetic of a
+    resume, the port's against the JAX engine's ``load_checkpoint`` given
+    the same ``meta.json`` (its Orbax restore stubbed out)."""
+    import monocon_tpu.engine.engine as jax_engine_module
+
+    source = resume_points[point]
+    with open(source / "meta.json") as f:
+        meta = json.load(f)
+    monkeypatch.setattr(jax_engine_module, "load_checkpoint",
+                        lambda path, state: (state, meta))
+    monkeypatch.setattr(jax_engine_module, "replicate_state",
+                        lambda state, mesh: state)
+    jax_cfg = jax_default_cfg()
+    jax_cfg.SEED = 123
+    fake = types.SimpleNamespace(
+        is_test=False, state=None, mesh=None, cfg=jax_cfg,
+        train_loader=None, test_loader=None, epochs=1, global_iters=1,
+        _resume_step_in_epoch=0)
+    JaxEngine.load_checkpoint(fake, str(source))
+    cfg = make_cfg(tree, tmp_path)
+    cfg.SEED = 123
+    engine = MonoConEngine(cfg, device="cpu")
+    engine.load_checkpoint(str(source))
+    assert (engine.epochs, engine._resume_step_in_epoch, engine.global_iters,
+            engine.cfg.SEED, engine.entire_losses) == (
+        fake.epochs, fake._resume_step_in_epoch, fake.global_iters,
+        fake.cfg.SEED, fake.entire_losses)
+    assert (engine.epochs, engine._resume_step_in_epoch) == (
+        (1, 1) if point == "mid" else (2, 0))

@@ -271,13 +271,25 @@ def test_test_cli_evaluates_on_the_cpu(checkpoint, slice_tree):
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "Eval Results" in proc.stdout and "3d   AP40" in proc.stdout
+
+
+def test_test_cli_visualizes_on_the_cpu(checkpoint, slice_tree, tmp_path):
+    """``--visualize`` writes one PNG per test image and item, named as
+    the image, at the image's size (the BEV canvas: 600x1200)."""
+    from monocon_tpu_torch.data.png import read_png
+
+    _, path = checkpoint
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-m", "monocon_tpu_torch.test", "--checkpoint_file",
          str(path), "--data_root", str(slice_tree), "--visualize",
-         "--device", "cpu"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0
-    assert "ROADMAP item 12" in proc.stderr
+         "--save_dir", str(tmp_path), "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    names = sorted(os.listdir(slice_tree / "training" / "image_2"))[-5:]
+    for item, hw in (("2d", SLICE_HW), ("3d", SLICE_HW), ("bev", (600, 1200))):
+        assert sorted(os.listdir(tmp_path / item)) == names
+        assert read_png(tmp_path / item / names[0]).shape == (*hw, 3)
 
 
 # ------------------------------------------------------------------ config

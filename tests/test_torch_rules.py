@@ -13,6 +13,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import torch_port_helpers  # noqa: F401 -- caps torch's threads
+
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "monocon_tpu",
              "cv2", "PIL", "yaml")
@@ -69,17 +71,22 @@ def test_chip_smoke_fails_without_a_card(alone, tmp_path):
 
 
 @pytest.mark.parametrize("cli, args", [
-    ("test", ["--checkpoint_file", "model.pth", "--evaluate"]),
-    ("train", ["--output_dir", "out"]),
-], ids=["test", "train"])
+    ("test", ["--checkpoint_file", "model.pth", "--evaluate",
+              "--data_root", "."]),
+    ("train", ["--output_dir", "out", "--data_root", "."]),
+    ("test", ["--checkpoint_file", "model.pth", "--visualize", "--save_dir",
+              "out", "--data_root", "."]),
+    ("test_raw", ["--data_dir", ".", "--calib_file", "calib.txt",
+                  "--checkpoint_file", "model.pth", "--save_dir", "out"]),
+], ids=["test", "train", "test_visualize", "test_raw"])
 def test_cli_needs_a_card_unless_told(cli, args, tmp_path):
     """With no ``--device`` and no CUDA device the CLI fails before it
     reads or writes anything."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-m", f"monocon_tpu_torch.{cli}",
-         *(str(tmp_path / a) if a in ("model.pth", "out") else a
-           for a in args), "--data_root", str(tmp_path)],
+         *(str(tmp_path / a) if a in ("model.pth", "out", ".", "calib.txt")
+           else a for a in args)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
@@ -87,13 +94,21 @@ def test_cli_needs_a_card_unless_told(cli, args, tmp_path):
 
 
 # The card's machine has no OpenCV, no PIL and no PyYAML: with each import
-# refused, the evaluation path imports, and a synthetic tree is written and
-# read back through the dataset.
+# refused, the evaluation, raw-drive and visualization paths import; a
+# synthetic tree is written and read back through the dataset, a frame
+# through the raw dataset, and one image of each plot is drawn.
 WITHOUT_IMAGE_LIBRARIES = """
-import sys
+import os, sys
 sys.modules["cv2"] = sys.modules["yaml"] = sys.modules["PIL"] = None
+import numpy as np
 import monocon_tpu_torch.engine.engine
 import monocon_tpu_torch.test
+import monocon_tpu_torch.test_raw
+import monocon_tpu_torch.utils.streaming
+from monocon_tpu_torch.data.kitti_raw import KITTIRawDataset
+from monocon_tpu_torch.data.png import write_png
+from monocon_tpu_torch.utils import draw
+from monocon_tpu_torch.utils.visualizer import Visualizer
 from monocon_tpu_torch.config import get_default_cfg
 from monocon_tpu_torch.data.monocon_dataset import MonoConDataset
 from monocon_tpu_torch.data.synthetic import generate_kitti_dataset
@@ -105,6 +120,23 @@ sample = ds.get_sample(1)
 assert sample["img"].shape == (64, 96, 3), sample["img"].shape
 assert len(ds.collect_gt_annos()) == 2
 print("read", len(ds), "images")
+frames = os.path.join(sys.argv[1], "frames")
+os.makedirs(frames)
+write_png(os.path.join(frames, "0000000000.png"),
+          np.zeros((48, 96, 3), np.uint8))
+calib = os.path.join(sys.argv[1], "calib_cam_to_cam.txt")
+with open(calib, "w") as f:
+    f.write("P_rect_02: 7.2e+02 0 48 0 0 7.2e+02 24 0 0 0 1 0\\n")
+raw = KITTIRawDataset(frames, calib)
+vis = [{"img_bbox": {"boxes_3d": np.array([[0, 1, 10, 2, 1.5, 4, 0.3]]),
+                     "scores_3d": np.ones(1), "labels_3d": np.array([2])},
+        "img_bbox2d": [np.zeros((0, 5)), np.zeros((0, 5)),
+                       np.array([[10, 10, 40, 30, 0.9]])]}]
+plots = Visualizer(raw, vis)
+shapes = [plots.plot_bboxes_2d(0).shape, plots.plot_bboxes_3d(0).shape,
+          plots.plot_bev(0).shape]
+assert shapes == [(48, 96, 3), (48, 96, 3), (600, 1200, 3)], shapes
+print("drew", len(shapes), "plots")
 """
 
 
@@ -114,7 +146,7 @@ def test_eval_path_needs_no_image_library(tmp_path):
         [sys.executable, "-c", WITHOUT_IMAGE_LIBRARIES, str(tmp_path)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert "read 2 images" in proc.stdout
+    assert "read 2 images" in proc.stdout and "drew 3 plots" in proc.stdout
 
 
 # The training path with the same three imports refused: a synthetic train

@@ -168,9 +168,7 @@ def test_default_train_transforms_match_jax(device_normalize):
     assert [type(t).__name__ for t in ours] == [
         type(t).__name__ for t in theirs]
     for a, b in zip(ours, theirs):
-        # The port's Normalize has no keep_origin (the visualizer's copy).
-        assert_same(vars(a), {k: v for k, v in vars(b).items()
-                              if k != "keep_origin"})
+        assert_same(vars(a), vars(b))
 
 
 # ------------------------------------------------------- dataset, loader

@@ -19,7 +19,7 @@ from monocon_tpu.utils.torch_convert import (
 from monocon_tpu_torch.engine.checkpoint import load_imagenet_backbone
 from monocon_tpu_torch.models.detector import create_detector
 from monocon_tpu_torch.utils.weights import state_dict_from_jax
-from torch_port_helpers import F32_TOL, perturb_variables
+from torch_port_helpers import F32_TOL, default_threads, perturb_variables  # noqa: F401
 
 HW = (64, 96)
 VARIANTS = (46, 60, 102)
@@ -120,6 +120,7 @@ def test_backbone_levels_match_jax(jax_variants, num_layers, rng):
 
 
 @pytest.mark.parametrize("num_layers", VARIANTS)
+@pytest.mark.usefixtures("default_threads")
 def test_detector_matches_jax(jax_variants, num_layers, rng):
     """Every head map in eval mode, then in train mode with every BN
     running stat, at the parity tolerance, from random BN state; DLA-102's

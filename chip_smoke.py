@@ -166,20 +166,6 @@ DLA102_REL = 1e-3       # DLA-102 float32 head maps, card against CPU,
                         # relative to each map's largest value
 CONFIG_FILE = "configs/kitti_v5e.yaml"
 CONFIG_ACCUM = 2
-# Imports the card's machine lacks, refused in the shipped-config run, which
-# then prints the splat kernel's launches.
-CONFIG_RUN = """
-import runpy, sys
-sys.modules["cv2"] = sys.modules["yaml"] = sys.modules["PIL"] = None
-sys.argv = ["train", *sys.argv[1:]]
-try:
-    runpy.run_module("monocon_tpu_torch.train", run_name="__main__")
-except SystemExit as e:
-    if e.code:
-        raise
-from monocon_tpu_torch.ops import splat
-print("SPLAT_LAUNCHES", splat.launch_count)
-"""
 # A port CLI with OpenCV, PIL and PyYAML refused; then prints the splat
 # kernel's launches.
 REFUSED_RUN = """
@@ -1597,28 +1583,17 @@ def phase_config_file(root: Path, out: Path) -> int:
     evaluation of its 16. Returns the splat kernel's launches."""
     import torch
 
-    cmd = [sys.executable, "-c", CONFIG_RUN, "--config_file", CONFIG_FILE,
-           "--set", "DATA.ROOT", str(root), "--set", "OUTPUT_DIR", str(out),
-           "--set", "SOLVER.OPTIM.NUM_EPOCHS", "1",
-           "--set", "TPU.GRAD_ACCUM_STEPS", str(CONFIG_ACCUM),
-           "--set", "PERIOD.EVAL_PERIOD", "1"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
-                          capture_output=True, text=True,
-                          timeout=TRAIN_CLI_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    (out / "config_run.log").parent.mkdir(parents=True, exist_ok=True)
-    (out / "config_run.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise AssertionError(f"configs: the config-file run exited "
-                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
-    launches = [int(line.split()[1]) for line in proc.stdout.splitlines()
-                if line.startswith("SPLAT_LAUNCHES")]
     batches = LOOP_TRAIN_IMAGES // BIG_BATCH
-    if launches != [2 * batches]:
-        raise AssertionError(f"configs: the config-file run launched the "
-                             f"splat kernel {launches} times, expected "
-                             f"{2 * batches} (2 per micro-batch)")
+    out.mkdir(parents=True, exist_ok=True)
+    _, wall = run_refused(
+        "monocon_tpu_torch.train",
+        ["--config_file", CONFIG_FILE, "--set", "DATA.ROOT", str(root),
+         "--set", "OUTPUT_DIR", str(out),
+         "--set", "SOLVER.OPTIM.NUM_EPOCHS", "1",
+         "--set", "TPU.GRAD_ACCUM_STEPS", str(CONFIG_ACCUM),
+         "--set", "PERIOD.EVAL_PERIOD", "1"],
+        out / "config_run.log", launches=2 * batches,
+        timeout=TRAIN_CLI_TIMEOUT_S)
     saved = (out / "config.yaml").read_text()
     for line in ('COMPUTE_DTYPE: "bfloat16"', f"BATCH_SIZE: {BIG_BATCH}",
                  f"GRAD_ACCUM_STEPS: {CONFIG_ACCUM}"):
@@ -1640,11 +1615,11 @@ def phase_config_file(root: Path, out: Path) -> int:
         f"{CONFIG_FILE} (PyYAML, OpenCV and PIL refused; bfloat16, batch "
         f"{BIG_BATCH}, TPU.GRAD_ACCUM_STEPS {CONFIG_ACCUM}): {batches} "
         f"micro-batches, schedule count {solver['count']}, splat launches "
-        f"{launches[0]}, losses {meta['entire_losses']}, evaluation 84 finite "
+        f"{2 * batches} (2 per micro-batch), losses {meta['entire_losses']}, evaluation 84 finite "
         f"AP keys; {wall:.3f} s wall (process start, builds, one epoch, the "
         f"evaluation, the checkpoints)")
     torch.cuda.empty_cache()
-    return launches[0]
+    return 2 * batches
 
 
 def write_drive(root: Path) -> "tuple[Path, Path]":
@@ -1666,25 +1641,25 @@ def write_drive(root: Path) -> "tuple[Path, Path]":
     return frames, calib
 
 
-def run_refused(module: str, args, log_path: Path) -> "tuple[str, float]":
+def run_refused(module: str, args, log_path: Path, launches: int = 0,
+                timeout: float = STREAM_CLI_TIMEOUT_S) -> "tuple[str, float]":
     """``python -m module args`` with OpenCV, PIL and PyYAML refused;
     (stdout, wall seconds). Fails unless it exits 0 and launched the splat
-    kernel 0 times."""
+    kernel ``launches`` times."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", REFUSED_RUN, module, *args],
                           cwd=Path(__file__).resolve().parent,
-                          capture_output=True, text=True,
-                          timeout=STREAM_CLI_TIMEOUT_S)
+                          capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - t0
     log_path.write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise AssertionError(f"stream: {module} exited {proc.returncode}:\n"
+        raise AssertionError(f"{module} exited {proc.returncode}:\n"
                              f"{proc.stderr[-3000:]}")
-    launches = [int(line.split()[1]) for line in proc.stdout.splitlines()
-                if line.startswith("SPLAT_LAUNCHES")]
-    if launches != [0]:
-        raise AssertionError(f"stream: {module} launched the splat kernel "
-                             f"{launches} times")
+    said = [int(line.split()[1]) for line in proc.stdout.splitlines()
+            if line.startswith("SPLAT_LAUNCHES")]
+    if said != [launches]:
+        raise AssertionError(f"{module} launched the splat kernel {said} "
+                             f"times, expected {launches}")
     return proc.stdout, wall
 
 

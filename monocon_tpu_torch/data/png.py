@@ -105,17 +105,22 @@ def filter_rows(rows: np.ndarray, filter_type: int, bpp: int) -> np.ndarray:
     """Apply one PNG filter type to every row of (H, stride) uint8 pixels.
     Each filter predicts from the unfiltered neighbours, so this, unlike
     its inverse, is elementwise."""
+    if filter_type not in range(5):
+        raise ValueError(f"unknown PNG filter type {filter_type}")
+    if filter_type == 0:
+        return np.array(rows, np.uint8)
     x = rows.astype(np.int16)
     a = np.zeros_like(x)
     a[:, bpp:] = x[:, :-bpp]            # left
     b = np.zeros_like(x)
     b[1:] = x[:-1]                      # up
-    c = np.zeros_like(x)
-    c[1:, bpp:] = x[:-1, :-bpp]         # up-left
-    predict = {0: 0, 1: a, 2: b, 3: (a + b) >> 1, 4: _paeth(a, b, c)}
-    if filter_type not in predict:
-        raise ValueError(f"unknown PNG filter type {filter_type}")
-    return ((x - predict[filter_type]) & 0xFF).astype(np.uint8)
+    if filter_type == 4:
+        c = np.zeros_like(x)
+        c[1:, bpp:] = x[:-1, :-bpp]     # up-left
+        predict = _paeth(a, b, c)
+    else:
+        predict = {1: a, 2: b, 3: (a + b) >> 1}[filter_type]
+    return ((x - predict) & 0xFF).astype(np.uint8)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

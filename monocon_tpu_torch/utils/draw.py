@@ -37,6 +37,7 @@ parity is claimed for them).
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -46,6 +47,9 @@ XY_ONE = 1 << XY_SHIFT
 # Beyond this many pixels from the canvas, fixed-point products may pass
 # int64; such shapes are walked in float64 (no parity with OpenCV).
 _EXACT_LIMIT = 1 << 24
+# Line ends are clipped to this before their int64 cast, so that it cannot
+# wrap (OpenCV takes int32 points only: no parity is lost).
+_INT_LIMIT = float(1 << 60)
 
 # OpenCV's ``LineAA`` tables (drawing.cpp): the weight of a line's pixel
 # by slope (1/32 steps up to 45 degrees) and by the line's distance from
@@ -188,8 +192,12 @@ def _blend(flat: np.ndarray, idx: np.ndarray, weight: np.ndarray,
     rank = np.arange(len(idx)) - np.repeat(starts, np.diff(np.r_[starts,
                                                                  len(idx)]))
     color = color.astype(np.int64)
-    for r in range(int(rank.max()) + 1):
-        sel = rank == r
+    # Every pixel's r-th blend at once, for r = 0, 1, ...: the blends
+    # grouped by rank, each group a run of by_rank.
+    by_rank = np.argsort(rank, kind="stable")
+    bounds = np.r_[0, np.cumsum(np.bincount(rank))]
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        sel = by_rank[lo:hi]
         pixels, a = idx[sel], weight[sel]
         c = flat[pixels].astype(np.int64)
         c += ((color - c) * a + 127) >> 8
@@ -429,40 +437,6 @@ def _finite(*values) -> bool:
     return all(np.isfinite(np.asarray(v, np.float64)).all() for v in values)
 
 
-def _clip_line(size, p, q):
-    """OpenCV's integer ``clipLine`` of p-q to the (w, h) image: ends
-    outside move onto the border along the line, offsets truncated toward
-    zero. Returns (visible, p, q)."""
-    (x1, y1), (x2, y2) = p, q
-    right, bottom = size[0] - 1, size[1] - 1
-
-    def code(x, y):
-        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
-
-    c1, c2 = code(x1, y1), code(x2, y2)
-    if (c1 & c2) == 0 and (c1 | c2) != 0:
-        if c1 & 12:
-            a = 0 if c1 < 8 else bottom
-            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
-            y1 = a
-            c1 = (x1 < 0) + (x1 > right) * 2
-        if c2 & 12:
-            a = 0 if c2 < 8 else bottom
-            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
-            y2 = a
-            c2 = (x2 < 0) + (x2 > right) * 2
-        if (c1 & c2) == 0 and (c1 | c2) != 0:
-            if c1:
-                a = 0 if c1 == 1 else right
-                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
-                x1, c1 = a, 0
-            if c2:
-                a = 0 if c2 == 1 else right
-                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
-                x2, c2 = a, 0
-    return (c1 | c2) == 0, (x1, y1), (x2, y2)
-
-
 def lines(img: np.ndarray, starts, ends, color) -> np.ndarray:
     """``cv2.line(img, p, q, color, 2, cv2.LINE_AA)`` for each pair of
     integer points, in place, blended together (up to the rounding of
@@ -470,16 +444,17 @@ def lines(img: np.ndarray, starts, ends, color) -> np.ndarray:
     first clipped to the image grown by the thickness on each side."""
     h, w = img.shape[:2]
     m = 2   # the thickness
+    p = np.asarray(starts, np.float64).reshape(-1, 2)
+    q = np.asarray(ends, np.float64).reshape(-1, 2)
+    finite = np.isfinite(p).all(1) & np.isfinite(q).all(1)
+    p, q = (np.trunc(np.clip(v[finite], -_INT_LIMIT, _INT_LIMIT)).astype(
+        np.int64) + m for v in (p, q))
+    visible, x1, y1, x2, y2 = _clip_lines((w + 2 * m, h + 2 * m), p[:, 0],
+                                          p[:, 1], q[:, 0], q[:, 1])
     canvas = _Canvas((h, w))
-    for pt1, pt2 in zip(starts, ends):
-        if not _finite(pt1, pt2):
-            continue
-        visible, p, q = _clip_line(
-            (w + 2 * m, h + 2 * m), (int(pt1[0]) + m, int(pt1[1]) + m),
-            (int(pt2[0]) + m, int(pt2[1]) + m))
-        if visible:
-            _thick_segment(_fixed((p[0] - m, p[1] - m)),
-                           _fixed((q[0] - m, q[1] - m)), 3, canvas)
+    for k in np.flatnonzero(visible):
+        _thick_segment(_fixed((x1[k] - m, y1[k] - m)),
+                       _fixed((x2[k] - m, y2[k] - m)), 3, canvas)
     return canvas.paint(img, color)
 
 
@@ -524,8 +499,10 @@ def rectangle(img: np.ndarray, pt1, pt2, color,
                               sorted((int(pt1[1]), int(pt2[1]))))
         x1, x2, y1, y2 = max(x1, 0), min(x2, w - 1), max(y1, 0), min(y2, h - 1)
         if x1 <= x2 and y1 <= y2:
-            img[y1:y2 + 1, x1:x2 + 1] = np.asarray(np.rint(color),
-                                                   img.dtype)[: img.shape[2]]
+            # A whole row of the colour, so that numpy copies rows, not
+            # one pixel's channels at a time.
+            row = np.asarray(np.rint(color), img.dtype)[: img.shape[2]]
+            img[y1:y2 + 1, x1:x2 + 1] = np.tile(row, (x2 - x1 + 1, 1))
         return img
     if thickness != 2:
         raise ValueError(f"thickness {thickness}: 2 or -1 (filled)")
@@ -555,14 +532,27 @@ def fill_poly(img: np.ndarray, pts, color) -> np.ndarray:
 
 def add_weighted(src1: np.ndarray, alpha: float, src2: np.ndarray,
                  beta: float, gamma: float) -> np.ndarray:
-    """``cv2.addWeighted`` of two uint8 images: ``fma(src1, alpha,
-    fma(src2, beta, gamma))`` in float32 as OpenCV's vector loop computes
-    it, rounded half to even, saturated. (A uint8 times a float32 is exact
-    in float64, so each fused multiply-add rounds once, there.)"""
+    """``cv2.addWeighted`` of two images of whole values 0..255 (uint8, or
+    float32 as ``Normalize(keep_origin=True)`` keeps them), as uint8,
+    through a table of its 256 x 256 results (:func:`_weighted_table`)."""
+    table = _weighted_table(float(alpha), float(beta), float(gamma))
+    return table.reshape(-1)[(src1.astype(np.intp) << 8)
+                             | src2.astype(np.intp)]
+
+
+@functools.lru_cache(maxsize=8)
+def _weighted_table(alpha: float, beta: float, gamma: float) -> np.ndarray:
+    """``addWeighted``'s result for each pair of uint8 values: ``fma(src1,
+    alpha, fma(src2, beta, gamma))`` in float32 as OpenCV's vector loop
+    computes it, rounded half to even, saturated. (A uint8 times a float32
+    is exact in float64, so each fused multiply-add rounds once, there.)"""
     f = np.float32
-    inner = (src2.astype(np.float64) * f(beta) + f(gamma)).astype(f)
-    out = (src1.astype(np.float64) * f(alpha) + inner).astype(f)
-    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    values = np.arange(256, dtype=np.float64)
+    inner = (values * f(beta) + f(gamma)).astype(f)
+    out = (values[:, None] * f(alpha) + inner[None, :]).astype(f)
+    table = np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    table.setflags(write=False)
+    return table
 
 
 def box_points(center: Sequence[float], size: Sequence[float],

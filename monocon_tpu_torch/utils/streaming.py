@@ -119,10 +119,10 @@ class PinnedUpload:
     only once the event of the copy that last read it has completed. On
     the CPU the array becomes a tensor that shares its memory."""
 
-    def __init__(self, device: "str | torch.device", slots: int = UPLOAD_SLOTS):
+    def __init__(self, device: "str | torch.device"):
         self.device = torch.device(device)
-        self._slots: List[Optional[torch.Tensor]] = [None] * slots
-        self._copied: List[Optional[torch.cuda.Event]] = [None] * slots
+        self._slots: List[Optional[torch.Tensor]] = [None] * UPLOAD_SLOTS
+        self._copied: List[Optional[torch.cuda.Event]] = [None] * UPLOAD_SLOTS
         self._next = 0
 
     def __call__(self, array: np.ndarray) -> torch.Tensor:

@@ -8,17 +8,19 @@ writes PNG files with ``data/png.py``.
 
 ``export_as_video`` keeps the JAX package's name and arguments, but the
 card's machine has no video encoder: it writes each item as a numbered PNG
-sequence (``save_dir/2d/000000.png``, ...), frame by frame, where the JAX
-package writes ``2d.mp4``, ``3d.mp4`` and ``bev.mp4``. ``fps`` is the rate
-to give an encoder. PNG sequences have no size cap (an uncompressed AVI's
-32-bit RIFF sizes stop near 4 GB, about 2900 KITTI frames) and read back
-bit-exact with ``read_png``.
+sequence (``save_dir/2d/000000.png``, ...), frame by frame on a few
+processes, where the JAX package writes ``2d.mp4``, ``3d.mp4`` and
+``bev.mp4``. ``fps`` is the rate to give an encoder. PNG sequences have
+no size cap (an uncompressed AVI's 32-bit RIFF sizes stop near 4 GB, about
+2900 KITTI frames) and read back bit-exact with ``read_png``.
 """
 
 from __future__ import annotations
 
 import functools
+import multiprocessing
 import os
+from concurrent.futures import ProcessPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -38,6 +40,9 @@ LINE_INDICES = ((0, 1), (0, 3), (0, 4), (1, 2), (1, 5), (3, 2), (3, 7),
 BEV_MAX_DIST, BEV_SCALE = 60, 10
 # Pixels past a rectangle's corners that its anti-aliased outline reaches.
 _OUTLINE_REACH = 3
+# Processes of export_as_video, each drawing and writing one plot at a time.
+EXPORT_WORKERS = 4
+_PLOTS = {"2d": "plot_bboxes_2d", "3d": "plot_bboxes_3d", "bev": "plot_bev"}
 
 @functools.cache
 def bev_grid() -> np.ndarray:
@@ -154,19 +159,24 @@ class Visualizer:
         plot_items: Sequence[str] = ("2d", "3d", "bev"),
         fps: int = 20,
     ) -> None:
-        """Write every frame of each item to ``save_dir/<item>/NNNNNN.png``,
-        one at a time. ``fps`` is not stored: PNG frames carry no rate
-        (the rate to give an encoder, e.g. ``ffmpeg -framerate <fps> -i
-        2d/%06d.png``)."""
+        """Write every frame of each item to ``save_dir/<item>/NNNNNN.png``.
+        ``EXPORT_WORKERS`` processes (spawned: the caller may hold a CUDA
+        context) each draw and write one plot at a time; the drawing holds
+        the interpreter lock, so threads would not overlap it. ``fps`` is
+        not stored: PNG frames carry no rate (the rate to give an encoder,
+        e.g. ``ffmpeg -framerate <fps> -i 2d/%06d.png``)."""
         assert self.mode == "raw", "video export needs a raw-sequence dataset"
-        fn_map = {"2d": self.plot_bboxes_2d, "3d": self.plot_bboxes_3d,
-                  "bev": self.plot_bev}
+        jobs = []
         for item in plot_items:
             item_dir = os.path.join(save_dir, item)
             os.makedirs(item_dir, exist_ok=True)
-            for i in range(len(self.dataset)):
-                fn_map[item](i, save_path=os.path.join(item_dir,
-                                                       f"{i:06d}.png"))
+            jobs += [(_PLOTS[item], i, os.path.join(item_dir, f"{i:06d}.png"))
+                     for i in range(len(self.dataset))]
+        with ProcessPoolExecutor(
+                EXPORT_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                initializer=_adopt, initargs=(self,)) as pool:
+            for _ in pool.map(_export_one, jobs, chunksize=4):
+                pass
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -198,3 +208,17 @@ class Visualizer:
             write_png(save_path, np.ascontiguousarray(image, np.uint8))
             return None
         return image
+
+
+_worker_visualizer: Optional[Visualizer] = None
+
+
+def _adopt(visualizer: Visualizer) -> None:
+    """An export process's initializer: the Visualizer it draws from."""
+    global _worker_visualizer
+    _worker_visualizer = visualizer
+
+
+def _export_one(job) -> None:
+    method, idx, path = job
+    getattr(_worker_visualizer, method)(idx, save_path=path)

@@ -11,9 +11,14 @@ A drawing is judged per image on the pixels OpenCV changed:
   * pixels more than 1 px from any pixel OpenCV changed exact (untouched);
   * the edge band between: per channel at most ``BAND_MAX`` levels off,
     and a mean difference of at most ``BAND_MEAN`` levels.
-Measured (this file, printed with ``-s``, on the CPU): every primitive and
-plot bit-equal to OpenCV's but for lines with an end 1e5 px out, whose
-edge band is off by at most 3 levels (mean under 0.01)."""
+That is the loosest rule allowed. The tests hold what was measured (this
+file, printed with ``-s``, on the CPU), which is tighter: every primitive
+and plot is bit-equal to OpenCV's, but lines with an end 1e5 px out, whose
+edge band is off by at most 3 levels (mean under 0.01), and circles, where
+a pixel now and then is off by 1 level (the sine table's last digits). So
+those two keep an edge band of ``FAR_LINE_BAND`` and ``CIRCLE_BAND``, the
+3D plot (which draws such lines) the far lines' band, and everything else
+must be equal to OpenCV's."""
 
 import os
 
@@ -43,6 +48,12 @@ from torch_port_helpers import perturb_variables
 
 HW = (96, 320)
 BAND_MAX, BAND_MEAN = 128, 24
+# (max, mean) of the edge band, as measured; EXACT allows no band at all.
+FAR_LINE_BAND = (3, 0.01)
+CIRCLE_BAND = (1, 0.01)
+EXACT = (0, 0.0)
+BAND = {"line_far": FAR_LINE_BAND, "circle": CIRCLE_BAND,
+        "3d": FAR_LINE_BAND}
 FAR = 100_000
 WHITE = (255, 255, 255)
 
@@ -73,12 +84,17 @@ def _flat(img):
     return same
 
 
-def assert_drawn_as_cv2(ref, got, base, what):
+def assert_drawn_as_cv2(ref, got, base, what, band=EXACT):
+    """The core/untouched/edge-band rule, with the edge band held to
+    ``band`` (max, mean), itself within ``BAND_MAX`` / ``BAND_MEAN``."""
+    assert band[0] <= BAND_MAX and band[1] <= BAND_MEAN
     core, untouched, band_max, band_mean = judge(ref, got, base)
     assert core == 0, f"{what}: core pixels off by {core}"
     assert untouched == 0, f"{what}: untouched pixels off by {untouched}"
-    assert band_max <= BAND_MAX, f"{what}: edge band off by {band_max}"
-    assert band_mean <= BAND_MEAN, f"{what}: edge band mean {band_mean}"
+    assert band_max <= band[0], f"{what}: edge band off by {band_max}"
+    assert band_mean <= band[1], f"{what}: edge band mean {band_mean}"
+    if band == EXACT:
+        np.testing.assert_array_equal(got, ref, err_msg=what)
     return band_max, band_mean
 
 
@@ -123,8 +139,8 @@ def test_primitive_drawn_as_cv2(kind, rng):
         base = rng.integers(0, 256, (*HW, 3), np.uint8)
         color = tuple(int(c) for c in rng.integers(0, 256, 3))
         ref, got = _primitive(kind, rng, base, color)
-        band_max, band_mean = assert_drawn_as_cv2(ref, got, base,
-                                                  f"{kind} {i}")
+        band_max, band_mean = assert_drawn_as_cv2(
+            ref, got, base, f"{kind} {i}", BAND.get(kind, EXACT))
         worst = [max(worst[0], band_max), max(worst[1], band_mean)]
     print(f"{kind}: edge band max {worst[0]}, largest mean {worst[1]:.2f}")
 
@@ -241,8 +257,8 @@ def test_plots_drawn_as_jax(drive, item, rng):
         assert got.shape == want.shape and got.dtype == np.uint8
         base = (np.zeros_like(want) if item == "bev"
                 else theirs[i]["ori_img"][0])
-        band_max, band_mean = assert_drawn_as_cv2(want, got, base,
-                                                  f"{item} frame {i}")
+        band_max, band_mean = assert_drawn_as_cv2(
+            want, got, base, f"{item} frame {i}", BAND.get(item, EXACT))
         print(f"{item} frame {i}: edge band max {band_max}, mean "
               f"{band_mean:.2f}")
     if item == "bev":

@@ -91,7 +91,28 @@ result line:
    the count of run D, ``launches_by_path`` that of each path; ``ms``,
    ``plain_ms``, ``bound_ms`` and ``per_call`` are those of run D's
    batch (96x312), ``per_call_train_step`` those of the isolated step
-   (96x320).
+   (96x320);
+11. parallel: a. a process group of one rank through NCCL (torchrun's
+   environment set in this process): the DLA-34 float32 step at B=8,
+   384x1280, under ``data_parallel`` (DistributedDataParallel) against
+   the plain step from the same weights and batch, in turns (plain, DDP,
+   DDP, plain): 11 losses within rtol 1e-3 / atol 1e-4, ms/step and peak
+   memory of each; b. two ranks on the one card through gloo (NCCL
+   refuses two ranks on one device), each in a process of its own with
+   4 rows of the same B=8 batch: the global losses against the plain
+   step's, parameters bit-equal across the ranks after the steps (SHA-256
+   of their bytes), ms/step and peak memory per rank; c. ``torchrun
+   --nproc_per_node 1 -m monocon_tpu_torch.train`` (OpenCV, PIL and PyYAML
+   refused) on the train-loop phase's tree: one epoch, finite losses, 84
+   finite AP keys, one set of checkpoints. The splat kernel launches
+   twice per step on every rank;
+12. bench and profiling: ``python -m monocon_tpu_torch.bench`` at its
+   defaults (B=128, bf16) and with ``BENCH_DTYPE=float32 BENCH_BATCH=8``,
+   each JSON line printed, ``mfu_pct`` in (0, 100]; the kernel seconds
+   that ``device_op_seconds`` reads from a ``device_trace`` of a serve loop
+   positive and at most 1.05x the CUDA-event time of the same loop.
+
+The kernels line is printed after phase 12.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Needs a CUDA device;
@@ -181,6 +202,15 @@ except SystemExit as e:
 from monocon_tpu_torch.ops import splat
 print("SPLAT_LAUNCHES", splat.launch_count)
 """
+# The parallel phase: train steps per run (the first is not timed), and
+# the two-rank run's time limit.
+PARALLEL_STEPS = 4
+TWO_RANK_TIMEOUT_S = 300
+# The bench phase: the root bench.py's keys, and the time limit of a run.
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "torch_fps",
+              "device_ms_per_step", "device_fps", "mfu_pct", "batch",
+              "dtype"}
+BENCH_TIMEOUT_S = 300
 # cuBLAS reads it when it creates its first handle: set before any CUDA
 # use, so that the deterministic runs can take deterministic products.
 CUBLAS_WORKSPACE = ":4096:8"
@@ -1642,12 +1672,15 @@ def write_drive(root: Path) -> "tuple[Path, Path]":
 
 
 def run_refused(module: str, args, log_path: Path, launches: int = 0,
-                timeout: float = STREAM_CLI_TIMEOUT_S) -> "tuple[str, float]":
-    """``python -m module args`` with OpenCV, PIL and PyYAML refused;
+                timeout: float = STREAM_CLI_TIMEOUT_S,
+                launcher=()) -> "tuple[str, float]":
+    """``python -m module args`` with OpenCV, PIL and PyYAML refused, after
+    ``launcher`` (a command that runs the interpreter, e.g. torchrun's);
     (stdout, wall seconds). Fails unless it exits 0 and launched the splat
     kernel ``launches`` times."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", REFUSED_RUN, module, *args],
+    proc = subprocess.run([*launcher, sys.executable, "-c", REFUSED_RUN,
+                           module, *args],
                           cwd=Path(__file__).resolve().parent,
                           capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - t0
@@ -1809,6 +1842,292 @@ def phase_stream(tmp: Path, eval_root: Path) -> int:
     return splat.launch_count
 
 
+def same_losses(got: dict, want: dict, what: str) -> float:
+    """Every loss of ``got`` within rtol 1e-3 / atol 1e-4 of ``want``'s;
+    returns the largest |difference|."""
+    if set(got) != set(want) or len(want) != 11:
+        raise AssertionError(f"parallel: {what}: losses {sorted(got)}")
+    worst = 0.0
+    for key, value in want.items():
+        err = abs(got[key] - value)
+        if not (np.isfinite(got[key]) and err <= 1e-4 + 1e-3 * abs(value)):
+            raise AssertionError(f"parallel: {what}: {key} {got[key]} "
+                                 f"against {value}")
+        worst = max(worst, err)
+    return worst
+
+
+def timed_train_steps(model, steps: int, batch, device) -> dict:
+    """``steps`` train steps of ``model`` (plain or DDP-wrapped) on
+    ``batch``: the first step's losses, ms/step of steps 1.. (host clock,
+    each ending in a synchronise), peak memory and splat launches."""
+    import torch
+
+    from monocon_tpu_torch import build_optimizer, train_step
+    from monocon_tpu_torch.ops import splat
+
+    optimizer, solver = build_optimizer(model.parameters(),
+                                        total_steps=steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    splat.launch_count = 0
+    times, first = [], None
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses = train_step(model, optimizer, solver, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        values = {k: float(v) for k, v in losses.items()}
+        if not all(np.isfinite(v) for v in values.values()):
+            raise AssertionError(f"parallel: non-finite losses {values}")
+        first = first or values
+    return {"losses": first, "ms": float(np.mean(times[1:])) * 1e3,
+            "peak": torch.cuda.max_memory_allocated(device),
+            "launches": splat.launch_count}
+
+
+def rank_batch(device, rank: int, world: int):
+    """Rank ``rank``'s rows of the isolated train step's batch (B=8)."""
+    batch = train_batch(np.random.default_rng(SEED + 1), TRAIN_BATCH, PAD_HW,
+                        device)
+    rows = slice(rank * TRAIN_BATCH // world,
+                 (rank + 1) * TRAIN_BATCH // world)
+    return {"img": batch["img"][rows],
+            "label": {k: v[rows] for k, v in batch["label"].items()}}
+
+
+def phase_world_of_one() -> "tuple[dict, int]":
+    """Phase 11a: a process group of one rank through NCCL, joined from
+    torchrun's environment set here. A DDP-wrapped DLA-34 float32 step at
+    B=8 against the plain step from the same weights and batch, in turns
+    (plain, DDP, DDP, plain). Returns the plain step's first losses and the
+    DDP turns' splat launches."""
+    import torch
+    import torch.distributed as dist
+
+    from monocon_tpu_torch import create_detector
+    from monocon_tpu_torch.parallel import (data_parallel,
+                                            initialize_distributed)
+    from monocon_tpu_torch.parallel.distributed import free_port
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    device = initialize_distributed("cuda")
+    try:
+        log(f"[parallel] world of one: backend {dist.get_backend()}, "
+            f"device {device}")
+        batch = rank_batch(device, 0, 1)
+        turns = []
+        for kind in ("plain", "ddp", "ddp", "plain"):
+            model = create_detector(
+                34, generator=torch.Generator().manual_seed(SEED),
+                device=device)
+            if kind == "ddp":
+                model = data_parallel(model, device)
+            turns.append((kind, timed_train_steps(model, PARALLEL_STEPS,
+                                                  batch, device)))
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                    "MASTER_PORT"):
+            os.environ.pop(key)
+    plain = turns[0][1]["losses"]
+    launches = 0
+    for kind, run in turns:
+        worst = same_losses(run["losses"], plain, f"{kind} turn")
+        if run["launches"] != 2 * PARALLEL_STEPS:
+            raise AssertionError(f"parallel: {kind}: splat launched "
+                                 f"{run['launches']} times")
+        launches += run["launches"] if kind == "ddp" else 0
+        log(f"[parallel] {kind:5s} B={TRAIN_BATCH} {PAD_HW[0]}x{PAD_HW[1]} "
+            f"float32: {run['ms']:.3f} ms/step over steps 1-"
+            f"{PARALLEL_STEPS - 1}, max_memory_allocated {run['peak']} "
+            f"bytes, splat launches {run['launches']}, first losses within "
+            f"{worst:.3g} of the plain turn's")
+    return plain, launches
+
+
+def two_rank_worker(out_path: str) -> None:
+    """One of two ranks on card 0 through gloo (phase 11b), run by
+    ``python -c``: DLA-34 float32 under ``data_parallel``, its 4 rows of
+    the B=8 batch, ``PARALLEL_STEPS`` steps. Writes the losses, ms/step,
+    peak memory, splat launches and a SHA-256 of its parameters' bytes."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from monocon_tpu_torch import create_detector
+    from monocon_tpu_torch.ops import splat
+    from monocon_tpu_torch.parallel import (data_parallel,
+                                            initialize_distributed,
+                                            rank_and_world)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = initialize_distributed("cuda", backend="gloo")
+    rank, world = rank_and_world()
+    model = data_parallel(create_detector(
+        34, generator=torch.Generator().manual_seed(SEED), device=device),
+        device)
+    run = timed_train_steps(model, PARALLEL_STEPS,
+                            rank_batch(device, rank, world), device)
+    digest = hashlib.sha256()
+    for p in model.module.parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    run["params_sha256"] = digest.hexdigest()
+    Path(out_path).write_text(json.dumps(run))
+    dist.destroy_process_group()
+
+
+def phase_two_ranks(tmp: Path, plain: dict) -> int:
+    """Phase 11b: two ranks on the one card through gloo, B=4 each (NCCL
+    refuses two ranks on one device). Their global losses against one
+    process's at B=8 (phase 11a's plain step), parameters bit-equal across
+    the ranks after the steps, 2 splat launches per step per rank.
+    Returns the ranks' splat launches."""
+    import torch
+
+    from monocon_tpu_torch.parallel.distributed import free_port
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    port, procs, outs = free_port(), [], []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        outs.append(tmp / f"two_ranks_{rank}.json")
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.two_rank_worker(sys.argv[1])", str(outs[-1])],
+            cwd=Path(__file__).resolve().parent, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate(timeout=TWO_RANK_TIMEOUT_S)[0] for p in procs]
+    wall = time.perf_counter() - t0
+    for rank, (proc, text) in enumerate(zip(procs, logs)):
+        (tmp / f"two_ranks_{rank}.log").write_text(text)
+        if proc.returncode != 0:
+            raise AssertionError(f"parallel: rank {rank} exited "
+                                 f"{proc.returncode}:\n{text[-3000:]}")
+    runs = [json.loads(o.read_text()) for o in outs]
+    if runs[0]["params_sha256"] != runs[1]["params_sha256"]:
+        raise AssertionError("parallel: the two ranks' parameters differ "
+                             f"after {PARALLEL_STEPS} steps")
+    launches = 0
+    for rank, run in enumerate(runs):
+        worst = same_losses(run["losses"], plain, f"rank {rank} of 2")
+        if run["launches"] != 2 * PARALLEL_STEPS:
+            raise AssertionError(f"parallel: rank {rank}: splat launched "
+                                 f"{run['launches']} times")
+        launches += run["launches"]
+        log(f"[parallel] two ranks on one card (gloo), rank {rank}, B=4 of "
+            f"8: {run['ms']:.3f} ms/step over steps 1-{PARALLEL_STEPS - 1}, "
+            f"max_memory_allocated {run['peak']} bytes, splat launches "
+            f"{run['launches']}, first global losses within {worst:.3g} of "
+            "one process at B=8")
+    log(f"[parallel] the two ranks' parameters are bit-equal after "
+        f"{PARALLEL_STEPS} steps (SHA-256 {runs[0]['params_sha256'][:16]}); "
+        f"{wall:.3f} s wall for both processes")
+    return launches
+
+
+def phase_torchrun_cli(root: Path, out: Path) -> int:
+    """Phase 11c: the train CLI under ``torchrun --nproc_per_node 1`` with
+    OpenCV, PIL and PyYAML refused, on the train-loop phase's tree: one
+    epoch, an evaluation. Returns the splat kernel's launches."""
+    out.mkdir(parents=True, exist_ok=True)
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1", "--no-python"]
+    stdout, wall = run_refused(
+        "monocon_tpu_torch.train",
+        ["--data_root", str(root), "--output_dir", str(out),
+         "--num_epochs", "1", "--set", "SEED", "0",
+         "--set", "PERIOD.EVAL_PERIOD", "1"],
+        out / "torchrun.log", launches=2 * LOOP_STEPS,
+        timeout=TRAIN_CLI_TIMEOUT_S, launcher=torchrun)
+    _, meta, ap = read_run(out)
+    check_losses(meta["entire_losses"], "torchrun CLI")
+    check_ap(ap)
+    saved = sorted(p.name for p in (out / "checkpoints").iterdir())
+    if saved != ["epoch_001", "epoch_001_final"]:
+        raise AssertionError(f"parallel: torchrun CLI wrote {saved}")
+    if stdout.count("MonoCon Engine (PyTorch port)") != 1:
+        raise AssertionError("parallel: torchrun CLI printed its banner "
+                             "more than once")
+    log(f"[parallel] torchrun --nproc_per_node 1 -m monocon_tpu_torch.train "
+        f"(OpenCV, PIL, PyYAML refused): {LOOP_STEPS} steps, losses "
+        f"{meta['entire_losses']}, 84 finite AP keys, checkpoints {saved}, "
+        f"splat launches {2 * LOOP_STEPS}; {wall:.3f} s wall")
+    return 2 * LOOP_STEPS
+
+
+def run_bench(env: dict) -> dict:
+    """``python -m monocon_tpu_torch.bench`` with ``env`` added: its JSON
+    line, printed, and checked."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "monocon_tpu_torch.bench"],
+        cwd=Path(__file__).resolve().parent, env={**os.environ, **env},
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    log(f"[bench] {' '.join(f'{k}={v}' for k, v in env.items())}: {line}")
+    result = json.loads(line)
+    if not BENCH_KEYS <= set(result):
+        raise AssertionError(f"bench: keys {sorted(result)}")
+    if result["vs_baseline"] is not None or result["torch_fps"] is not None:
+        raise AssertionError("bench: vs_baseline and torch_fps must be null")
+    if not (result["mfu_pct"] is not None and 0 < result["mfu_pct"] <= 100):
+        raise AssertionError(f"bench: mfu_pct {result['mfu_pct']}")
+    if not (result["value"] > 0 and result["device_ms_per_step"] > 0):
+        raise AssertionError(f"bench: {result}")
+    return result
+
+
+def phase_bench(tmp: Path) -> None:
+    """Phase 12: the bench at its defaults (B=128, bf16) and in float32 at
+    B=8; then a traced serve loop (DLA-34 float32, B=8, 10 iterations):
+    its kernel seconds from ``device_op_seconds`` positive and at most
+    1.05x the CUDA-event time of the same loop."""
+    import torch
+
+    from monocon_tpu_torch.bench import make_forward
+    from monocon_tpu_torch.utils.profiling import (device_op_seconds,
+                                                   device_trace)
+
+    run_bench({})
+    run_bench({"BENCH_DTYPE": "float32", "BENCH_BATCH": str(TRAIN_BATCH)})
+
+    _, forward, image, p2 = make_forward(34, "float32", SERVE_BATCH,
+                                         torch.device(DEVICE))
+    for _ in range(3):
+        forward(image, p2)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    iters = 10
+    with device_trace(str(tmp / "serve_trace")):
+        start.record()
+        for _ in range(iters):
+            forward(image, p2)
+        end.record()
+        torch.cuda.synchronize()
+    kernel_s = device_op_seconds(str(tmp / "serve_trace"))
+    event_s = start.elapsed_time(end) / 1e3
+    if not 0 < kernel_s <= 1.05 * event_s:
+        raise AssertionError(f"profiling: kernels {kernel_s} s against "
+                             f"events {event_s} s")
+    log(f"[bench] traced serve loop, {iters} x B={SERVE_BATCH} float32: "
+        f"device_op_seconds {kernel_s:.6f} s, CUDA events {event_s:.6f} s "
+        f"({kernel_s / event_s:.1%} of the span in kernels)")
+
+
 def main() -> int:
     import torch
 
@@ -1836,6 +2155,11 @@ def main() -> int:
         by_path["train_step_dla102"] = phase_dla102()
         by_path["config_file_run"] = phase_config_file(
             Path(tmp) / "kitti_train", Path(tmp) / "run_config")
+        plain, by_path["ddp_world_of_one"] = phase_world_of_one()
+        by_path["two_ranks_gloo"] = phase_two_ranks(Path(tmp), plain)
+        by_path["torchrun_cli"] = phase_torchrun_cli(
+            Path(tmp) / "kitti_train", Path(tmp) / "run_torchrun")
+        phase_bench(Path(tmp))
     # The numbers of the path whose launches the line reports: run D's.
     entry = splat_entry(loop_calls, max(
         worst, *(s["max_abs_err"] for s in loop_calls)))

@@ -6,7 +6,9 @@ model, targets, losses, decode and optimizer, the training loop with
 checkpoints and resume, and the evaluation path (:class:`MonoConEngine`,
 ``python -m monocon_tpu_torch.train``, ``python -m monocon_tpu_torch.test``),
 held against the JAX package by the ``tests/test_torch_*.py`` parity tests
-on the CPU. It imports nothing of ``monocon_tpu`` and nothing of JAX.
+on the CPU; data-parallel over several GPUs (``parallel/``); and the
+bench of its main path (``python -m monocon_tpu_torch.bench``). It
+imports nothing of ``monocon_tpu`` and nothing of JAX.
 
 Entry points take a ``device`` argument and run on ``cuda`` unless the
 caller passes ``device="cpu"``; without CUDA and without an explicit device

@@ -3,7 +3,7 @@
 A copy of ``monocon_tpu/config/defaults.py``: the same key tree, ``TPU.*``
 included, so that the files in ``configs/`` load in both packages. Files are
 read and written by ``yaml_subset.py``, with no PyYAML (the card's machine
-has none). :func:`check_port_support` refuses the settings the port does
+has none). :func:`check_port_support` refuses the one setting the port does
 not run yet.
 """
 
@@ -124,10 +124,12 @@ _DEFAULTS: Dict[str, Any] = {
     },
     # The JAX package's accelerator knobs, under the same name so that one
     # config file serves both packages. The port reads all but
-    # PALLAS_TARGETS, and refuses more than one device (check_port_support).
+    # PALLAS_TARGETS, and refuses SPATIAL_SHARDS > 1 (check_port_support).
     "TPU": {
         "COMPUTE_DTYPE": "float32",
-        "NUM_DEVICES": -1,            # -1: all devices (the port: one)
+        # Processes, one per GPU (-1: every visible GPU; on the CPU, one),
+        # clamped to divide DATA.BATCH_SIZE (parallel/distributed.py).
+        "NUM_DEVICES": -1,
         "GRAD_ACCUM_STEPS": 1,
         "SPATIAL_SHARDS": 1,
         "MULTIHOST": False,
@@ -162,12 +164,10 @@ def export_cfg(cfg: ConfigNode, save_path: str) -> None:
 
 
 def check_port_support(cfg: ConfigNode) -> None:
-    """Raise ``NotImplementedError`` for the settings the port does not run
-    yet, those of more than one device, naming the ROADMAP item that will
-    bring them."""
-    if (cfg.TPU.NUM_DEVICES > 1 or cfg.TPU.SPATIAL_SHARDS > 1
-            or cfg.TPU.MULTIHOST):
+    """Raise ``NotImplementedError`` for the setting the port does not run
+    yet, ``TPU.SPATIAL_SHARDS > 1`` (the image height split over devices),
+    naming the ROADMAP item that will bring it."""
+    if cfg.TPU.SPATIAL_SHARDS > 1:
         raise NotImplementedError(
-            f"TPU.NUM_DEVICES={cfg.TPU.NUM_DEVICES}, TPU.SPATIAL_SHARDS="
-            f"{cfg.TPU.SPATIAL_SHARDS}, TPU.MULTIHOST={cfg.TPU.MULTIHOST}: "
-            "the port runs on one device; multi-GPU is ROADMAP item 16")
+            f"TPU.SPATIAL_SHARDS={cfg.TPU.SPATIAL_SHARDS}: the port splits "
+            "batches over GPUs but not the image height; ROADMAP item 22")

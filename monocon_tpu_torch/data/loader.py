@@ -16,10 +16,17 @@ prefetch queue, and places batches on a torch device:
     wait on it (:func:`use_on_current_stream`). A canvas is filled again only
     after the event of the copy that read it has completed.
 
-Unlike the JAX loader there are no padding rows: the last batch of a split
-is as short as it is. With ``shuffle=True`` the order of each epoch is
-drawn from ``(seed, epoch)``, and each sample's augmentation from ``(seed,
-epoch, position)``, as there.
+With ``shuffle=True`` the order of each epoch is drawn from ``(seed,
+epoch)``, and each sample's augmentation from ``(seed, epoch, position)``,
+as there. On one rank there are no padding rows: the last batch of a split
+is as short as it is. Over ``world`` ranks ``batch_size`` is the global
+batch, and each rank's loader reads only its rows of it
+(``parallel/mesh.py::rank_rows``), with their global positions, so that
+the ranks together see the pixels and labels that one process sees; the
+remainder batch is padded cyclically to the global batch, as the JAX
+loader's ``pad_to_batch`` pads it, and each batch carries ``valid`` (its
+rows' 0/1, a device tensor) and ``num_valid`` (the global batch's real
+rows).
 """
 
 from __future__ import annotations
@@ -32,10 +39,14 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import rank_rows
+
 DEFAULT_PAD_HW = (384, 1248)
 # The tensors of a batch that go to the device (and, for training, the
 # arrays of its ``label`` dict).
 DEVICE_KEYS = ("img", "img_hw", "p2")
+# Also sent, where a batch has it: the 0/1 of a padded batch's rows.
+VALID_KEY = "valid"
 # Pinned canvases in the ring of the CUDA path: one being filled, one
 # being copied, one in the prefetch queue.
 STAGING_BUFFERS = 3
@@ -111,7 +122,7 @@ def use_on_current_stream(batch: Dict[str, Any]) -> Dict[str, Any]:
     waits for the batch's copies, and the tensors, made on the copy
     stream, are marked as used by this one for the allocator."""
     event = batch.get("ready")
-    tensors = {k: batch[k] for k in DEVICE_KEYS}
+    tensors = {k: batch[k] for k in (*DEVICE_KEYS, VALID_KEY) if k in batch}
     label = batch.get("label")
     if label and not isinstance(next(iter(label.values())), torch.Tensor):
         label = None        # left on the host
@@ -120,7 +131,7 @@ def use_on_current_stream(batch: Dict[str, Any]) -> Dict[str, Any]:
     if event is not None:
         stream = torch.cuda.current_stream(tensors["img"].device)
         stream.wait_event(event)
-        for t in (*(tensors[k] for k in DEVICE_KEYS),
+        for t in (*(v for k, v in tensors.items() if k != "label"),
                   *(label.values() if label is not None else ())):
             t.record_stream(stream)
     return tensors
@@ -133,8 +144,10 @@ class DataLoader:
     derived from (seed, epoch, sample position).
 
     Each batch holds its ``img``, ``img_hw`` and ``p2`` (with
-    ``labels=True`` also its ``label`` arrays) as tensors on ``device``
-    (see the module docstring), the rest as on the host.
+    ``labels=True`` also its ``label`` arrays, and over several ranks its
+    ``valid``) as tensors on ``device`` (see the module docstring), the
+    rest as on the host. ``batch_size`` is the global batch, of which rank
+    ``rank`` of ``world`` loads ``batch_size // world`` rows.
     """
 
     def __init__(
@@ -148,7 +161,12 @@ class DataLoader:
         seed: int = 0,
         prefetch_batches: int = 2,
         labels: bool = False,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world:
+            raise ValueError(f"a global batch of {batch_size} does not "
+                             f"split over {world} ranks")
         self.dataset = dataset
         self.device = torch.device(device)
         self.batch_size = batch_size
@@ -159,6 +177,8 @@ class DataLoader:
         self.seed = seed
         self.prefetch_batches = max(1, prefetch_batches)
         self.labels = labels
+        self.rank = rank
+        self.world = world
         self.epoch = 0
         # The pinned canvases of the CUDA path, and the event of the last
         # copy that read each.
@@ -195,7 +215,7 @@ class DataLoader:
         pad_hw = self.pad_hw or (max(s["img"].shape[0] for s in samples),
                                  max(s["img"].shape[1] for s in samples))
         dtype = torch.from_numpy(samples[0]["img"][:0]).dtype
-        shape = (self.batch_size, *pad_hw, 3)
+        shape = (self.batch_size // self.world, *pad_hw, 3)
         canvas = self._staging[slot]
         if canvas is None or canvas.shape != shape or canvas.dtype != dtype:
             canvas = torch.empty(shape, dtype=dtype, pin_memory=True)
@@ -207,7 +227,8 @@ class DataLoader:
         """Replace the batch's device keys (and with ``labels`` its label
         arrays) by tensors on ``self.device``; on CUDA the image comes from
         ``canvas``, which collate filled."""
-        host = {k: torch.from_numpy(batch[k]) for k in DEVICE_KEYS}
+        host = {k: torch.from_numpy(batch[k])
+                for k in (*DEVICE_KEYS, VALID_KEY) if k in batch}
         label = ({k: torch.from_numpy(v) for k, v in batch["label"].items()}
                  if self.labels and "label" in batch else {})
         if self.device.type != "cuda":
@@ -250,8 +271,13 @@ class DataLoader:
                     for bi, start in enumerate(batch_starts):
                         if stop.is_set():
                             return
-                        idxs = order[start:start + self.batch_size]
-                        positions = range(start, start + len(idxs))
+                        num_real = min(self.batch_size, len(order) - start)
+                        rows = (rank_rows(self.batch_size, num_real,
+                                          self.rank, self.world)
+                                if self.world > 1 else
+                                [(j, True) for j in range(num_real)])
+                        positions = [start + j for j, _ in rows]
+                        idxs = order[positions]
                         if pool is None:
                             samples = [self._load_one(i, p)
                                        for i, p in zip(idxs, positions)]
@@ -266,6 +292,10 @@ class DataLoader:
                             samples, self.pad_hw,
                             out_images=(None if canvas is None
                                         else canvas.numpy()))
+                        if self.world > 1:
+                            batch[VALID_KEY] = np.array(
+                                [v for _, v in rows], np.float32)
+                            batch["num_valid"] = num_real
                         self._to_device(batch, slot, canvas)
                         out_q.put(batch)
                 finally:

@@ -49,6 +49,21 @@ stream of ``test_raw.py`` shares).
 
 ``visualize`` draws every test image's detections in the visualization
 format (2D boxes, 3D wireframes, bird's-eye view) into PNG files.
+
+Data parallelism. In a process group of more than one rank (the CLIs join
+one from torchrun's environment or spawn one process per device,
+``parallel/distributed.py``), ``DATA.BATCH_SIZE`` is the global batch and
+each rank loads, trains on and evaluates its rows of it, the remainder
+batch padded and masked (``data/loader.py``), as the JAX engine shards a
+batch over its mesh. Training runs a ``DistributedDataParallel`` wrapper
+(``train_model``) with BN moments and loss normalisers of the global batch
+(``train_step``), so a step equals one process's step on the whole batch.
+Every rank starts from rank 0's weights and resumes from the checkpoint
+that rank 0 finds. Evaluation gathers the ranks' KITTI annotations on rank
+0, which computes the AP dict and hands it to every rank. Rank 0 alone
+prints, writes ``config.yaml``, the checkpoints and the metrics file,
+and draws (``visualize``). Eval-mode forwards use the unwrapped
+``model``.
 """
 
 from __future__ import annotations
@@ -60,6 +75,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import (ConfigNode, check_port_support, export_cfg,
                       get_default_cfg, load_cfg)
@@ -70,6 +86,7 @@ from ..device import resolve_device
 from ..models.detector import create_detector
 from ..ops.decode import decode_predictions
 from ..ops.image_norm import normalize_if_raw
+from ..parallel import data_parallel, rank_and_world, replicate_state
 from ..solver.schedule import build_optimizer
 from ..utils.convert import (
     convert_to_kitti_2d,
@@ -149,6 +166,9 @@ class MonoConEngine:
         self.cfg = cfg
         self.is_test = is_test
         self.device = resolve_device(device)
+        # The process group's shape: this rank of `world`.
+        self.rank, self.world = rank_and_world()
+        self.is_main = self.rank == 0
 
         # Counters (1-based, reference base_engine.py:35-42).
         self.epochs = 1
@@ -182,7 +202,7 @@ class MonoConEngine:
             pretrained = cfg.MODEL.BACKBONE.PRETRAINED_PATH
             if cfg.MODEL.BACKBONE.IMAGENET_PRETRAINED and pretrained:
                 load_imagenet_backbone(pretrained, self.model)
-                tprint(f"ImageNet backbone loaded from '{pretrained}'.")
+                self._say(f"ImageNet backbone loaded from '{pretrained}'.")
             grad_accum = max(1, int(cfg.TPU.GRAD_ACCUM_STEPS))
             settings = cfg.SOLVER
             self.optimizer, self.solver = build_optimizer(
@@ -201,13 +221,36 @@ class MonoConEngine:
         self.weight_dir = os.path.join(self.root, "checkpoints")
         self.writer: Optional[MetricsWriter] = None
         if not is_test:
-            resumed = latest_checkpoint(self.weight_dir) if auto_resume else None
+            resumed = (self._on_main(lambda: latest_checkpoint(
+                self.weight_dir)) if auto_resume else None)
             if resumed:
                 self.load_checkpoint(resumed)
-                tprint(f"Existing checkpoint '{resumed}' is found and loaded "
-                       "automatically.")
-            os.makedirs(self.writer_dir, exist_ok=True)
-            os.makedirs(self.weight_dir, exist_ok=True)
+                self._say(f"Existing checkpoint '{resumed}' is found and "
+                          "loaded automatically.")
+            self._on_main(lambda: [os.makedirs(d, exist_ok=True) for d in
+                                   (self.writer_dir, self.weight_dir)])
+        # The model that trains: over several ranks, the DDP wrapper.
+        self.train_model = self.model
+        if self.world > 1:
+            if is_test:
+                replicate_state(self.model)
+            else:
+                self.train_model = data_parallel(self.model, self.device)
+
+    def _say(self, message: str) -> None:
+        """``tprint`` on rank 0."""
+        if self.is_main:
+            tprint(message)
+
+    def _on_main(self, fn):
+        """``fn()`` on rank 0 alone, after the other ranks have come this
+        far; every rank returns its result once rank 0 has it."""
+        if self.world == 1:
+            return fn()
+        dist.barrier()
+        out = [fn() if self.is_main else None]
+        dist.broadcast_object_list(out, src=0)
+        return out[0]
 
     def _build_loader(self, is_train: bool):
         cfg = self.cfg
@@ -239,6 +282,8 @@ class MonoConEngine:
             seed=max(cfg.SEED, 0),
             prefetch_batches=cfg.TPU.PREFETCH_BATCHES,
             labels=is_train,
+            rank=self.rank,
+            world=self.world,
         )
         return dataset, loader
 
@@ -262,9 +307,10 @@ class MonoConEngine:
         saved_seed = meta.get("seed")
         if saved_seed is not None and int(saved_seed) != max(
                 int(self.cfg.SEED), 0):
-            tprint(f"Resuming with the checkpoint's data seed {saved_seed} "
-                   f"(this process started with SEED={self.cfg.SEED}; the "
-                   "shuffle/augmentation stream follows the original run).")
+            self._say(f"Resuming with the checkpoint's data seed {saved_seed}"
+                      f" (this process started with SEED={self.cfg.SEED}; "
+                      "the shuffle/augmentation stream follows the original "
+                      "run).")
             self.cfg.SEED = int(saved_seed)
             for loader in (self.train_loader, self.test_loader):
                 if loader is not None:
@@ -288,7 +334,7 @@ class MonoConEngine:
         save records ``step_in_epoch``, the steps of this epoch done, and
         the ``global_iters`` of the step after them."""
         self._materialize_losses()
-        path = save_checkpoint(
+        path = self._on_main(lambda: save_checkpoint(
             self.weight_dir, self.model, self.optimizer, self.solver,
             self.epochs, self.global_iters + (1 if step_in_epoch else 0),
             final=final,
@@ -298,8 +344,8 @@ class MonoConEngine:
                    # The run's data seed, from which the loader's order
                    # and augmentation derive: a resuming process adopts it.
                    "seed": max(int(self.cfg.SEED), 0)},
-        )
-        tprint(f"Checkpoint saved to '{path}'.")
+        ))
+        self._say(f"Checkpoint saved to '{path}'.")
         return path
 
     # ------------------------------------------------------------------
@@ -343,11 +389,8 @@ class MonoConEngine:
             for batch_idx, batch in enumerate(self.train_loader):
                 if batch_idx < skip_steps:
                     continue
-                dev = use_on_current_stream(batch)
-                losses = train_step(self.model, self.optimizer,
-                                    self.solver,
-                                    {"img": dev["img"], "img_hw": dev["img_hw"],
-                                     "label": dev["label"]})
+                losses = train_step(self.train_model, self.optimizer,
+                                    self.solver, use_on_current_stream(batch))
                 self.entire_losses.append(losses["total_loss"])
                 if self.global_iters % self.log_period == 0:
                     self._log_step(losses, batch_idx + 1, steps)
@@ -368,6 +411,8 @@ class MonoConEngine:
         loss_host = dict(zip(names, values))
         total = loss_host.pop("total_loss")
         self._materialize_losses()
+        if not self.is_main:
+            return
         recent = self.entire_losses[-100:]
         print(f"| Progress {progress_bar(done, steps)} | LR "
               f"{self.current_lr:.6f} | Loss {total:8.4f} "
@@ -378,8 +423,12 @@ class MonoConEngine:
 
     def _print_engine_info(self) -> None:
         """Engine banner (reference base_engine.py:253-269)."""
+        if not self.is_main:
+            return
         kind = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "CPU")
+        if self.world > 1:
+            kind += f", rank 0 of {self.world}"
         print("=" * 70)
         print(f" MonoCon Engine (PyTorch port) | {self.cfg.VERSION}")
         print(f" - Description : {self.cfg.DESCRIPTION}")
@@ -405,41 +454,48 @@ class MonoConEngine:
                 f"the run is at epoch {self.epochs}, past SOLVER.OPTIM."
                 f"NUM_EPOCHS={self.target_epochs}: nothing to train")
         self._print_engine_info()
-        export_cfg(self.cfg, os.path.join(self.root, "config.yaml"))
+        self._on_main(lambda: export_cfg(
+            self.cfg, os.path.join(self.root, "config.yaml")))
         if resume_from is not None:
             path = resume_from
             if os.path.basename(path) == STATE_FILE:
                 path = os.path.dirname(path) or "."
             self.load_checkpoint(path)
-            tprint(f"Training resumes from '{resume_from}'. "
-                   f"(Start Epoch: {self.epochs})")
-        tprint(f"Training proceeds from epoch {self.epochs} to "
-               f"epoch {self.target_epochs}.")
-        tprint(f"Result files are saved to '{self.root}'.")
-        self.writer = MetricsWriter(self.writer_dir)
+            self._say(f"Training resumes from '{resume_from}'. "
+                      f"(Start Epoch: {self.epochs})")
+        self._say(f"Training proceeds from epoch {self.epochs} to "
+                  f"epoch {self.target_epochs}.")
+        self._say(f"Result files are saved to '{self.root}'.")
+        if self.is_main:
+            self.writer = MetricsWriter(self.writer_dir)
         try:
             for _ in range(self.epochs, self.target_epochs + 1):
-                print(f" Epoch {self.epochs:3d} / {self.target_epochs:3d} "
-                      .center(90, "="))
+                if self.is_main:
+                    print(f" Epoch {self.epochs:3d} / "
+                          f"{self.target_epochs:3d} ".center(90, "="))
                 t0 = time.time()
                 avg_loss = self.train_one_epoch()
                 elapsed = time.time() - t0
                 self.epoch_times.append(elapsed)
                 remaining = (self.target_epochs - self.epochs) * float(
                     np.mean(self.epoch_times))
-                print(f"\n- Average Loss: {avg_loss:.3f}")
-                print(f"- Epoch Time: {elapsed:.1f}s | ETA "
-                      f"{remaining / 3600:.2f}h")
+                if self.is_main:
+                    print(f"\n- Average Loss: {avg_loss:.3f}")
+                    print(f"- Epoch Time: {elapsed:.1f}s | ETA "
+                          f"{remaining / 3600:.2f}h")
                 if self.val_period > 0 and self.epochs % self.val_period == 0:
-                    self.writer.add_scalars(self.evaluate(), tag="eval",
-                                            step=self.epochs)
+                    ap = self.evaluate()
+                    if self.writer is not None:
+                        self.writer.add_scalars(ap, tag="eval",
+                                                step=self.epochs)
                     self.save_checkpoint()
                 self.epochs += 1
             self.epochs = self.target_epochs
             self.save_checkpoint(final=True)
         finally:
-            self.writer.close()
-            self.writer = None
+            if self.writer is not None:
+                self.writer.close()
+                self.writer = None
 
     def _on_device(self):
         return (torch.cuda.device(self.device) if self.device.type == "cuda"
@@ -447,19 +503,25 @@ class MonoConEngine:
 
     # ------------------------------------------------------------------
     def evaluate(self, verbose: bool = True) -> Dict[str, float]:
-        """Collect detections over the test split and run KITTI AP."""
-        return self.test_dataset.evaluate(
-            self.collect_detections(), eval_classes=EVAL_CLASSES,
-            verbose=verbose)
+        """Collect detections over the test split and run KITTI AP (over
+        several ranks: on rank 0, with every rank's detections; the dict
+        is returned on every rank)."""
+        container = self.collect_detections()
+        return self._on_main(lambda: self.test_dataset.evaluate(
+            container, eval_classes=EVAL_CLASSES, verbose=verbose))
 
     def collect_detections(self, device_ms: Optional[List[float]] = None
                            ) -> Dict[str, List[Dict[str, Any]]]:
         """KITTI annotations of every test image, 3D (``img_bbox``) and 2D
         (``img_bbox2d``). On the card, ``device_ms``, when given, receives
         each batch's device milliseconds from the normalisation to the end
-        of the decode, by CUDA events."""
+        of the decode, by CUDA events. Over several ranks each rank
+        converts its rows; rank 0 returns them all, in the split's order,
+        the other ranks an empty container."""
         self.model.eval()
-        container: Dict[str, List] = {"img_bbox": [], "img_bbox2d": []}
+        # One container per batch: over several ranks rank 0 interleaves
+        # the ranks' rows batch by batch.
+        per_batch: List[Dict[str, List]] = []
         events = ([] if device_ms is not None and self.device.type == "cuda"
                   else None)
         pending = None  # (dispatched, batch)
@@ -467,15 +529,36 @@ class MonoConEngine:
             for batch in self.test_loader:
                 dispatched = self._dispatch_eval(batch, events)
                 if pending is not None:
-                    self._collect_eval(*pending, container)
+                    per_batch.append(self._collect_eval(*pending))
                 pending = (dispatched, batch)
             if pending is not None:
-                self._collect_eval(*pending, container)
+                per_batch.append(self._collect_eval(*pending))
         if events is not None:
             for start, end in events:
                 end.synchronize()
                 device_ms.append(start.elapsed_time(end))
-        return container
+        per_batch = self._gather_batches(per_batch)
+        return {key: [anno for part in per_batch for anno in part[key]]
+                for key in ("img_bbox", "img_bbox2d")}
+
+    def _gather_batches(self, per_batch: List[Any]) -> List[Any]:
+        """Each rank's per-batch results (lists, or dicts of lists, of its
+        valid rows), interleaved on rank 0 batch by batch and rank by rank:
+        the split's order. Other ranks get an empty list."""
+        if self.world == 1:
+            return per_batch
+        gathered = [None] * self.world if self.is_main else None
+        dist.gather_object(per_batch, gathered, dst=0)
+        if not self.is_main:
+            return []
+        return [part for parts in zip(*gathered) for part in parts]
+
+    def _valid_rows(self, rows: List[Any], batch: Dict[str, Any]) -> List[Any]:
+        """This rank's ``rows`` of a loader batch without its padding."""
+        if "num_valid" not in batch:
+            return rows
+        keep = batch["num_valid"] - self.rank * len(rows)
+        return rows[:min(max(keep, 0), len(rows))]
 
     def _dispatch_eval(self, batch: Dict[str, Any], events=None):
         """Queue the forward and decode of a loader batch; on the card also
@@ -499,10 +582,11 @@ class MonoConEngine:
             "img_bbox2d": convert_to_kitti_2d(per_image, batch["img_metas"]),
         }
 
-    def _collect_eval(self, dispatched, batch, container) -> None:
-        result = self._finalize_eval(dispatched, batch)
-        container["img_bbox"].extend(result["img_bbox"])
-        container["img_bbox2d"].extend(result["img_bbox2d"])
+    def _collect_eval(self, dispatched, batch) -> Dict[str, List]:
+        """A dispatched batch's KITTI annotations, its padding rows
+        dropped."""
+        return {k: self._valid_rows(v, batch) for k, v in
+                self._finalize_eval(dispatched, batch).items()}
 
     def run_eval_batch(self, batch: Dict[str, Any], vis_format: bool = False):
         """One loader batch through the whole path, unpipelined."""
@@ -514,15 +598,21 @@ class MonoConEngine:
     def visualize(self, output_dir: str,
                   draw_items: Sequence[str] = ("2d", "3d", "bev")) -> None:
         """Draw each test image's detections: one PNG per image and item
-        under ``output_dir/<item>/``, named as the image."""
+        under ``output_dir/<item>/``, named as the image. Over several
+        ranks, rank 0 draws every rank's detections."""
         from ..utils.visualizer import Visualizer
 
-        vis_container: List[Dict[str, Any]] = []
+        per_batch: List[List[Dict[str, Any]]] = []
         scale_hw = None
         for batch in self.test_loader:
             if scale_hw is None and batch["img_metas"].get("scale_hw"):
                 scale_hw = batch["img_metas"]["scale_hw"][0]
-            vis_container.extend(self.run_eval_batch(batch, vis_format=True))
+            per_batch.append(self._valid_rows(
+                self.run_eval_batch(batch, vis_format=True), batch))
+        per_batch = self._gather_batches(per_batch)
+        if not self.is_main:
+            return
+        vis_container = [row for part in per_batch for row in part]
         visualizer = Visualizer(self.test_dataset, vis_container,
                                 scale_hw=scale_hw)
         plot = {"2d": visualizer.plot_bboxes_2d,

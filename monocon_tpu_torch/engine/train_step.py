@@ -9,34 +9,44 @@ dtype; on the card their Gaussian heatmaps come from the CUDA splat kernel
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.nn.parallel import DistributedDataParallel
 
 from ..losses.losses import (
-    dim_aware_l1_loss,
-    gaussian_focal_loss,
-    laplacian_aleatoric_uncertainty_loss,
-    masked_binary_cross_entropy,
-    masked_l1_loss,
+    LossTerm,
+    dim_aware_l1_term,
+    gaussian_focal_term,
+    laplacian_aleatoric_uncertainty_term,
+    masked_binary_cross_entropy_term,
+    masked_l1_term,
 )
+from ..models.layers import batch_stats_scope
 from ..ops.heatmap import gather_feature
 from ..ops.image_norm import normalize_if_raw
 from ..ops.targets import generate_targets
 from ..solver.schedule import Solver
 
-EPS = 1e-12
 FEAT_STRIDE = 4
 
 
-def compute_losses(pred: Dict[str, torch.Tensor],
-                   target: Dict[str, torch.Tensor], num_kpts: int = 9,
-                   num_alpha_bins: int = 12) -> Dict[str, torch.Tensor]:
-    """The ten criteria on fixed-shape (B, O) masked rows."""
+def loss_terms(pred: Dict[str, torch.Tensor],
+               target: Dict[str, torch.Tensor], num_kpts: int = 9,
+               num_alpha_bins: int = 12,
+               sample_valid: Optional[torch.Tensor] = None
+               ) -> Dict[str, LossTerm]:
+    """The ten criteria on fixed-shape (B, O) masked rows, as sums
+    (:class:`LossTerm`). ``sample_valid`` (B,) keeps padded batch rows out
+    of every term: object rows through the mask, heatmap pixels through the
+    focal loss's sample weight."""
     indices = target["indices"]
     indices_kpt = target["indices_kpt"]
     mask = target["mask_target"].to(torch.float32)            # (B, O)
+    if sample_valid is not None:
+        mask = mask * sample_valid.to(torch.float32)[:, None]
     row_mask = mask[..., None]                                 # (B, O, 1)
     b, o = mask.shape
 
@@ -47,71 +57,115 @@ def compute_losses(pred: Dict[str, torch.Tensor],
                     "alpha_offset_pred")
     }
 
-    loss_offset = masked_l1_loss(gathered["offset_pred"],
-                                 target["offset_target"], row_mask)
-    loss_wh = 0.1 * masked_l1_loss(gathered["wh_pred"], target["wh_target"],
-                                   row_mask)
-    loss_dim = dim_aware_l1_loss(gathered["dim_pred"], target["dim_target"],
-                                 gathered["dim_pred"], row_mask)
-    loss_depth = laplacian_aleatoric_uncertainty_loss(
-        gathered["depth_pred"][..., 0:1], target["depth_target"],
-        gathered["depth_pred"][..., 1:2], row_mask)
-
-    loss_center_heatmap = gaussian_focal_loss(
-        pred["center_heatmap_pred"], target["center_heatmap_target"])
-    loss_kpt_heatmap = gaussian_focal_loss(
-        pred["kpt_heatmap_pred"], target["kpt_heatmap_target"])
+    wh = masked_l1_term(gathered["wh_pred"], target["wh_target"], row_mask)
+    terms = {
+        "loss_center_heatmap": gaussian_focal_term(
+            pred["center_heatmap_pred"], target["center_heatmap_target"],
+            sample_valid),
+        # The reference's weight 0.1, applied to the sums.
+        "loss_wh": LossTerm(0.1 * wh.nums, wh.dens, wh.combine),
+        "loss_offset": masked_l1_term(gathered["offset_pred"],
+                                      target["offset_target"], row_mask),
+        "loss_dim": dim_aware_l1_term(gathered["dim_pred"],
+                                      target["dim_target"],
+                                      gathered["dim_pred"], row_mask),
+    }
 
     # centre->kpt offsets: the prediction zeroed outside the kpt mask,
     # averaged by the kpt-mask count.
     m_c2k = target["mask_center2kpt_offset"] * row_mask
-    loss_center2kpt = masked_l1_loss(
+    terms["loss_center2kpt_offset"] = masked_l1_term(
         gathered["center2kpt_offset_pred"] * m_c2k,
-        target["center2kpt_offset_target"], row_mask,
-        avg_factor=m_c2k.sum() + EPS)
+        target["center2kpt_offset_target"], row_mask, avg_mask=m_c2k)
+    terms["loss_kpt_heatmap"] = gaussian_focal_term(
+        pred["kpt_heatmap_pred"], target["kpt_heatmap_target"], sample_valid)
 
     # kpt-heatmap sub-pixel offsets, gathered at the per-kpt indices: the
     # reference averages |pred - target| over valid-object rows by the
     # kpt-mask count, without zeroing the unmasked components.
     kh_pred = gather_feature(pred["kpt_heatmap_offset_pred"], indices_kpt)
     kh_pred = kh_pred.reshape(b, o, num_kpts * 2)
-    m_kh = target["mask_kpt_heatmap_offset"] * row_mask
-    loss_kpt_heatmap_offset = masked_l1_loss(
+    terms["loss_kpt_heatmap_offset"] = masked_l1_term(
         kh_pred * row_mask, target["kpt_heatmap_offset_target"], row_mask,
-        avg_factor=m_kh.sum() + EPS)
+        avg_mask=target["mask_kpt_heatmap_offset"] * row_mask)
 
     alpha_cls = target["alpha_cls_target"][..., 0].long()
     onehot = F.one_hot(alpha_cls, num_alpha_bins).to(torch.float32)
-    loss_alpha_cls = masked_binary_cross_entropy(
+    terms["loss_alpha_cls"] = masked_binary_cross_entropy_term(
         gathered["alpha_cls_pred"], onehot, row_mask)
     alpha_res_pred = (gathered["alpha_offset_pred"] * onehot).sum(
         -1, keepdim=True)
-    loss_alpha_reg = masked_l1_loss(alpha_res_pred,
-                                    target["alpha_offset_target"], row_mask)
+    terms["loss_alpha_reg"] = masked_l1_term(
+        alpha_res_pred, target["alpha_offset_target"], row_mask)
+    terms["loss_depth"] = laplacian_aleatoric_uncertainty_term(
+        gathered["depth_pred"][..., 0:1], target["depth_target"],
+        gathered["depth_pred"][..., 1:2], row_mask)
+    return terms
 
-    return {
-        "loss_center_heatmap": loss_center_heatmap,
-        "loss_wh": loss_wh,
-        "loss_offset": loss_offset,
-        "loss_dim": loss_dim,
-        "loss_center2kpt_offset": loss_center2kpt,
-        "loss_kpt_heatmap": loss_kpt_heatmap,
-        "loss_kpt_heatmap_offset": loss_kpt_heatmap_offset,
-        "loss_alpha_cls": loss_alpha_cls,
-        "loss_alpha_reg": loss_alpha_reg,
-        "loss_depth": loss_depth,
-    }
+
+def compute_losses(pred: Dict[str, torch.Tensor],
+                   target: Dict[str, torch.Tensor], num_kpts: int = 9,
+                   num_alpha_bins: int = 12,
+                   sample_valid: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """The ten losses of one batch (:func:`loss_terms`)."""
+    return {k: t.value() for k, t in loss_terms(
+        pred, target, num_kpts, num_alpha_bins, sample_valid).items()}
+
+
+def reduce_loss_terms(terms: Dict[str, LossTerm],
+                      group: Optional[dist.ProcessGroup] = None
+                      ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """(the losses of the global batch, the objective this rank
+    differentiates).
+
+    With no group, the losses of this batch and their sum. Over a group,
+    every term's sums are added over the ranks in one all-reduce, so each
+    rank reads the global losses, as the JAX package's SPMD step computes
+    them; the objective is ``world`` times this rank's share of their sum
+    (its sums over the global normalisers), so that the gradients that
+    DistributedDataParallel averages over the ranks are those of the
+    global loss."""
+    if group is None:
+        losses = {k: t.value() for k, t in terms.items()}
+        return losses, sum(losses.values())
+    dtype = next(iter(terms.values())).nums.dtype
+    parts = [torch.cat([t.nums.detach().to(dtype), t.dens.to(dtype)])
+             for t in terms.values()]
+    flat = torch.cat(parts)
+    dist.all_reduce(flat, group=group)
+    world = dist.get_world_size(group)
+    losses, objective = {}, 0.0
+    for (name, term), total in zip(terms.items(),
+                                   flat.split([len(p) for p in parts])):
+        nums, dens = total.split([len(term.nums), len(term.dens)])
+        losses[name] = term.combine(nums, dens)
+        objective = objective + term.combine(term.nums, dens.to(
+            term.nums.dtype))
+    return losses, world * objective
 
 
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                solver: Solver,
                batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """One micro-step on ``batch = {'img': (B,H,W,3), 'label': {...},
-    'img_hw': optional (B,2)}``, all on the model's device: the solver
-    steps AdamW on this batch's gradient, or with accumulation on every
-    ``grad_accum``-th call (:class:`Solver`). BN running stats update on
-    every call. Returns the ten losses and ``total_loss``, detached, without
-    a host sync."""
+    'img_hw': optional (B,2), 'valid': optional (B,)}``, all on the model's
+    device: the solver steps AdamW on this batch's gradient, or with
+    accumulation on every ``grad_accum``-th call (:class:`Solver`). BN
+    running stats update on every call. Returns the ten losses and
+    ``total_loss``, detached, without a host sync.
+
+    ``valid`` marks a padded batch's real rows: the others count in no
+    loss and no BN moment. A ``DistributedDataParallel`` model over more
+    than one rank takes its rows of the global batch: BN moments and loss
+    normalisers are those of the global batch, the losses returned are the
+    global ones, and the averaged gradient is the global loss's."""
+    group = None
+    if isinstance(model, DistributedDataParallel):
+        group = model.process_group
+        if dist.get_world_size(group) == 1:
+            group = None
+    valid = batch.get("valid")
     img = normalize_if_raw(batch["img"], batch.get("img_hw"))
     pad_hw = (img.shape[1], img.shape[2])
     feat_hw = (pad_hw[0] // FEAT_STRIDE, pad_hw[1] // FEAT_STRIDE)
@@ -119,10 +173,12 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         target = generate_targets(batch["label"], feat_hw, pad_hw)
 
     model.train()
-    losses = compute_losses(model(img), target)
-    total = sum(losses.values())
+    with batch_stats_scope(model, group, valid):
+        pred = model(img)
+    losses, objective = reduce_loss_terms(
+        loss_terms(pred, target, sample_valid=valid), group)
     optimizer.zero_grad(set_to_none=True)
-    total.backward()
+    objective.backward()
     solver.step()
-    losses["total_loss"] = total
+    losses["total_loss"] = sum(losses.values())
     return {k: v.detach() for k, v in losses.items()}

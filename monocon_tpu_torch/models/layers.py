@@ -5,11 +5,31 @@ semantics that the JAX package rebuilds in ``TorchBatchNorm``: it normalises
 train-mode activations with the biased batch variance and accumulates the
 Bessel-corrected one into ``running_var``. Momenta are torch's: 0.1 for the
 backbone and neck, 0.03 for the attentive norms.
+
+Batch moments across ranks and rows. In the JAX package a train step is one
+SPMD program, so BatchNorm's moments are global over the devices of the
+mesh, and ``bn_mask`` keeps a padded batch's repeated rows out of them.
+Here every BatchNorm of the model is a :class:`BatchNorm2d`, and inside
+:func:`batch_stats_scope` its train-mode moments are taken by hand: the
+sum, the sum of squares and the count of the rows marked valid, summed in
+float64 and added over the ranks of a process group in one
+autograd-aware all-reduce per layer. The output is normalised in float32
+(float64 for a float64 input) by the global biased variance, and
+``running_var`` takes the global ``n / max(n - 1, 1)`` correction. Outside a scope each layer runs as it
+always did. ``nn.SyncBatchNorm`` is not used: it runs only on CUDA tensors,
+and ``convert_sync_batchnorm`` would replace the two subclasses below by a
+plain BatchNorm. Nor is ``torch.distributed.nn.functional.all_reduce``,
+deprecated in torch 2.13: :class:`AllReduceSum` is its sum.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+from typing import Iterator, Optional
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -21,8 +41,111 @@ ATTN_BN_EPS = 1e-3
 ATTN_VAR_EPS = 1e-3
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+@dataclasses.dataclass(frozen=True)
+class BatchStats:
+    """Where train-mode BN moments come from: the rows of this rank whose
+    ``valid`` (B,) is 1 (all rows when None), over the ranks of ``group``
+    (this process alone when None)."""
+
+    group: Optional[dist.ProcessGroup] = None
+    valid: Optional[torch.Tensor] = None
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that takes its train-mode moments from the
+    :class:`BatchStats` of an enclosing :func:`batch_stats_scope`."""
+
+    batch_stats: Optional[BatchStats] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.batch_stats is not None:
+            return scoped_batch_norm(self, x, self.batch_stats)
+        return super().forward(x)
+
+
+@contextlib.contextmanager
+def batch_stats_scope(model: nn.Module,
+                      group: Optional[dist.ProcessGroup] = None,
+                      valid: Optional[torch.Tensor] = None) -> Iterator[None]:
+    """Inside, every :class:`BatchNorm2d` of ``model`` in train mode takes
+    its moments over the ``valid`` rows and the ranks of ``group``. With
+    neither given, nothing changes."""
+    if group is None and valid is None:
+        yield
+        return
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    stats = BatchStats(group, valid)
+    for m in layers:
+        m.batch_stats = stats
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.batch_stats = None
+
+
+class AllReduceSum(torch.autograd.Function):
+    """The sum of a tensor over the ranks of a group, on every rank; its
+    gradient is the sum of the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor,
+                group: dist.ProcessGroup) -> torch.Tensor:
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return AllReduceSum.apply(grad, ctx.group), None
+
+
+def scoped_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor,
+                      stats: BatchStats) -> torch.Tensor:
+    """Train-mode BatchNorm of ``x`` (B, C, H, W) with moments over the
+    valid rows of every rank of ``stats.group``; updates ``bn``'s running
+    stats with them. Normalises in float32 (or float64) and returns
+    ``x``'s dtype."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    c = xf.shape[1]
+    dims = (0, 2, 3)
+    per_row = xf.shape[2] * xf.shape[3]
+    if stats.valid is None:
+        masked = xf
+        count = xf.new_full((1,), float(xf.shape[0] * per_row))
+    else:
+        valid = stats.valid.to(xf.dtype)
+        masked = xf * valid[:, None, None, None]
+        count = (valid.sum() * per_row).reshape(1)
+    # Sums in float64: E[x^2] - E[x]^2 in float32 would lose the variance
+    # of channels whose mean is large against their spread.
+    acc = torch.float64
+    sums = torch.cat([masked.sum(dims, dtype=acc),
+                      (masked * xf).sum(dims, dtype=acc), count.to(acc)])
+    if stats.group is not None:
+        sums = AllReduceSum.apply(sums, stats.group)
+    n = sums[2 * c]
+    mean = sums[:c] / n
+    var = (sums[c:2 * c] / n - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean.to(xf.dtype), alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(
+            (var * (n / (n - 1.0).clamp_min(1.0))).to(xf.dtype), alpha=m)
+        bn.num_batches_tracked.add_(1)
+    mean, var = mean.to(xf.dtype), var.to(xf.dtype)
+    scale = torch.rsqrt(var + bn.eps)
+    if bn.affine:
+        scale = scale * bn.weight
+    out = (xf - mean[None, :, None, None]) * scale[None, :, None, None]
+    if bn.affine:
+        out = out + bn.bias[None, :, None, None]
+    return out.to(x.dtype)
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 def conv_bn_relu_layers(in_ch: int, out_ch: int, kernel_size: int = 3,
@@ -54,7 +177,7 @@ def hsigmoid_v2(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
 
 
-class MomentsBatchNorm(nn.BatchNorm2d):
+class MomentsBatchNorm(BatchNorm2d):
     """BatchNorm2d whose train-mode moments are computed here rather than by
     ``F.batch_norm``.
 
@@ -69,7 +192,7 @@ class MomentsBatchNorm(nn.BatchNorm2d):
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        if not self.training or self.batch_stats is not None:
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = (0, 2, 3)
@@ -112,7 +235,7 @@ class AttnWeights(nn.Module):
         return y.reshape(y.shape[0], y.shape[1])
 
 
-class AttnBatchNorm(nn.BatchNorm2d):
+class AttnBatchNorm(BatchNorm2d):
     """Attentive normalisation: an affine-free BN (momentum 0.03, eps 1e-3)
     scaled and shifted per sample by the attention-mixed K affines
     ``weight_`` and ``bias_`` (K, C).

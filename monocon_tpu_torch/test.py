@@ -11,7 +11,13 @@ exported first with ``scripts/export_torch_ckpt.py``), --data_root,
 ``--device`` names another device, e.g. ``cpu``; without it and without a
 card the command fails. ``--visualize`` writes one PNG per test image
 and item under ``--save_dir``: ``2d/``, ``3d/`` and ``bev/``, each named
-as its image (``MonoConEngine.visualize``).
+as its image (``MonoConEngine.visualize``). ``--set KEY VALUE`` sets a
+config key, as in the train CLI.
+
+As the train CLI does, it runs one process per GPU under torchrun or when
+``TPU.NUM_DEVICES`` asks for several (-1, the default, is every visible
+GPU): each rank evaluates its rows of every batch and rank 0 computes the
+AP dict and draws.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import sys
 import torch
 
 
-def parse_args():
+def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="MonoCon evaluation "
                                      "(PyTorch port)")
     parser.add_argument("--config_file", type=str, default=None)
@@ -36,14 +42,18 @@ def parse_args():
     parser.add_argument("--evaluate", action="store_true")
     parser.add_argument("--visualize", action="store_true")
     parser.add_argument("--save_dir", type=str, default="./vis_results")
-    return parser.parse_args()
+    parser.add_argument("--set", nargs=2, action="append", default=[],
+                        metavar=("KEY", "VALUE"),
+                        help="set a config key, e.g. --set TPU.NUM_DEVICES 1")
+    return parser.parse_args(argv)
 
 
-def main() -> int:
-    args = parse_args()
+def main(argv=None) -> int:
+    args = parse_args(argv)
     from .config import get_default_cfg, load_cfg
     from .device import resolve_device
-    from .engine.engine import MonoConEngine
+    from .parallel import launch
+    from .train import set_key
 
     if args.device is not None:
         device = torch.device(args.device)
@@ -53,16 +63,26 @@ def main() -> int:
     cfg = load_cfg(args.config_file) if args.config_file else get_default_cfg()
     if args.data_root:
         cfg.DATA.ROOT = args.data_root
+    for key, text in args.set:
+        set_key(cfg, key, text)
+    launch(run_test, cfg, device, args)
+    return 0
+
+
+def run_test(cfg, device: torch.device, args) -> None:
+    """Evaluate and draw on ``device``, as one process or one rank."""
+    from .engine.engine import MonoConEngine
 
     engine = MonoConEngine(cfg, is_test=True, device=device)
     engine.load_checkpoint(args.checkpoint_file)
-    print(f"Checkpoint '{args.checkpoint_file}' loaded.", flush=True)
+    if engine.is_main:
+        print(f"Checkpoint '{args.checkpoint_file}' loaded.", flush=True)
     if args.evaluate:
         engine.evaluate()
     if args.visualize:
         engine.visualize(args.save_dir, draw_items=["2d", "3d", "bev"])
-        print(f"Visualizations saved to '{args.save_dir}'.", flush=True)
-    return 0
+        if engine.is_main:
+            print(f"Visualizations saved to '{args.save_dir}'.", flush=True)
 
 
 if __name__ == "__main__":

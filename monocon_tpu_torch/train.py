@@ -9,14 +9,26 @@ The flags of the root ``train.py``: --config_file (a YAML overlay such as
 (repeatable) sets one config key after the file, e.g. ``--set
 TPU.GRAD_ACCUM_STEPS 2``; --deterministic
 makes cuDNN and the other CUDA ops pick deterministic algorithms, so that
-two runs give the same bits; --gpu_id runs on ``cuda:<gpu_id>``; --device
+two runs give the same bits; --resume_from continues the run of a
+checkpoint directory; --gpu_id runs on ``cuda:<gpu_id>``; --device
 names another device, e.g. ``cpu``. Without --device and without a card
 the command fails.
 
-As the root ``train.py`` does: SEED -1 draws a random seed, and an
-existing complete checkpoint under OUTPUT_DIR is resumed. TF32 is off, so
-that the card computes in float32 as the CPU does; cuDNN autotunes its
-convolutions when USE_BENCHMARK is true and --deterministic is not given.
+Several GPUs: ``TPU.NUM_DEVICES`` (-1, the default, is every visible GPU)
+starts one process per GPU, or a launcher does, on one node or several:
+
+    torchrun --nproc_per_node 8 -m monocon_tpu_torch.train ...
+
+``DATA.BATCH_SIZE`` is the global batch, split over the processes
+(``engine/engine.py``, ``parallel/distributed.py``); process ``r`` of a
+node runs on ``cuda:r``, whatever --gpu_id says. On the CPU,
+``--device cpu --set TPU.NUM_DEVICES 2`` runs two gloo processes.
+
+As the root ``train.py`` does: SEED -1 draws a random seed (rank 0's, for
+every rank), and an existing complete checkpoint under OUTPUT_DIR is
+resumed. TF32 is off, so that the card computes in float32 as the CPU
+does; cuDNN autotunes its convolutions when USE_BENCHMARK is true and
+--deterministic is not given.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ import random
 import sys
 
 import torch
+import torch.distributed as dist
 
 # cuBLAS reads it when it creates its first handle; deterministic matrix
 # products need it.
@@ -50,6 +63,8 @@ def parse_args(argv=None):
                         help="set a config key, e.g. --set SEED 0")
     parser.add_argument("--deterministic", action="store_true",
                         help="deterministic CUDA algorithms only")
+    parser.add_argument("--resume_from", type=str, default=None,
+                        help="a checkpoint directory whose run to continue")
     parser.add_argument("--gpu_id", type=int, default=0,
                         help="the card to run on, cuda:<gpu_id>")
     parser.add_argument("--device", type=str, default=None,
@@ -78,7 +93,7 @@ def main(argv=None) -> int:
 
     from .config import get_default_cfg, load_cfg
     from .device import resolve_device
-    from .utils.logging_utils import tprint
+    from .parallel import launch
 
     if args.device is not None:
         device = torch.device(args.device)
@@ -96,15 +111,27 @@ def main(argv=None) -> int:
         cfg.DATA.BATCH_SIZE = args.batch_size
     for key, text in args.set:
         set_key(cfg, key, text)
+    launch(run_training, cfg, device, args.deterministic, args.resume_from)
+    return 0
 
-    # Random seed resolution (reference train.py:31-36).
-    if cfg.SEED == -1:
-        cfg.SEED = random.randint(0, 2**31 - 1)
-    tprint(f"Using random seed {cfg.SEED}.")
+
+def run_training(cfg, device: torch.device, deterministic: bool,
+                 resume_from=None) -> None:
+    """Train on ``device``, as one process or one rank of a group."""
+    from .engine.engine import MonoConEngine
+    from .utils.logging_utils import tprint
+
+    # Random seed resolution (reference train.py:31-36), rank 0's for all.
+    seed = [random.randint(0, 2**31 - 1) if cfg.SEED == -1 else cfg.SEED]
+    if dist.is_initialized():
+        dist.broadcast_object_list(seed, src=0)
+    cfg.SEED = seed[0]
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        tprint(f"Using random seed {cfg.SEED}.")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.deterministic:
+    if deterministic:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
         torch.use_deterministic_algorithms(True)
         torch.backends.cudnn.deterministic = True
@@ -112,10 +139,7 @@ def main(argv=None) -> int:
     else:
         torch.backends.cudnn.benchmark = bool(cfg.USE_BENCHMARK)
 
-    from .engine.engine import MonoConEngine
-
-    MonoConEngine(cfg, device=device).train()
-    return 0
+    MonoConEngine(cfg, device=device).train(resume_from=resume_from)
 
 
 if __name__ == "__main__":

@@ -304,10 +304,8 @@ def test_config_files_load_as_in_jax(name):
 
 
 @pytest.mark.parametrize("setting, item", [
-    ({"TPU": {"NUM_DEVICES": 4}}, "item 16"),
-    ({"TPU": {"SPATIAL_SHARDS": 2}}, "item 16"),
-    ({"TPU": {"MULTIHOST": True}}, "item 16"),
-], ids=["devices", "spatial", "multihost"])
+    ({"TPU": {"SPATIAL_SHARDS": 2}}, "item 22"),
+], ids=["spatial"])
 def test_engine_refuses_what_the_port_does_not_run(setting, item):
     cfg = get_default_cfg()
     cfg.merge_from_dict(setting)

@@ -4,6 +4,7 @@ never choose the CPU on their own; and ``chip_smoke.py`` refuses to run
 without a CUDA device."""
 
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -237,3 +238,57 @@ def test_train_cli_reads_the_shipped_config_without_pyyaml(tmp_path):
     solver = container["state_dict"]["scheduler"]
     assert (solver["count"], solver["mini_step"]) == (1, 1)
     assert proc.stdout.count("| Progress") == 3
+
+
+@pytest.fixture()
+def refused_path(tmp_path):
+    """A directory whose ``cv2``, ``yaml`` and ``PIL`` raise ImportError,
+    for the front of ``PYTHONPATH``: it refuses the three imports in a
+    command's own process and in the processes it spawns. TensorFlow, which
+    the card's machine lacks too and ``torch.utils.tensorboard`` takes
+    about 20 s to import here, is refused as well."""
+    stubs = tmp_path / "refused"
+    (stubs / "PIL").mkdir(parents=True)
+    refuse = "raise ImportError('refused for this test')\n"
+    for path in (stubs / "cv2.py", stubs / "yaml.py", stubs / "tensorflow.py",
+                 stubs / "PIL" / "__init__.py"):
+        path.write_text(refuse)
+    return f"{stubs}{os.pathsep}{ROOT}"
+
+
+def test_bench_needs_no_image_library(refused_path):
+    env = dict(os.environ, PYTHONPATH=refused_path, BENCH_BATCH="1",
+               BENCH_ITERS="1", OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "monocon_tpu_torch.bench", "--device", "cpu"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    (line,) = proc.stdout.strip().splitlines()
+    assert json.loads(line)["device"] == "cpu"
+
+
+def test_multi_rank_train_cli_needs_no_image_library(refused_path, tmp_path):
+    """Two gloo ranks spawned by the train CLI, the three imports refused
+    in every process: one step of a global batch of 2, a checkpoint."""
+    root, out = tmp_path / "kitti", tmp_path / "out"
+    env = dict(os.environ, PYTHONPATH=refused_path, OMP_NUM_THREADS="1")
+    make_tree = ("from monocon_tpu_torch.data.synthetic import "
+                 "generate_kitti_dataset as g; "
+                 f"g({str(root)!r}, num_train=2, num_val=1, "
+                 "image_hw=(64, 160), seed=0)")
+    subprocess.run([sys.executable, "-c", make_tree], cwd=ROOT, env=env,
+                   check=True, timeout=120)
+    args = ["--device", "cpu", "--data_root", str(root), "--output_dir",
+            str(out), "--num_epochs", "1", "--batch_size", "2"]
+    for key, value in {"TPU.NUM_DEVICES": 2, "SEED": 0,
+                       "DATA.NUM_WORKERS": 1, "DATA.CROP_HW": "[48, 128]",
+                       "TPU.PAD_HW": "[64, 160]",
+                       "PERIOD.EVAL_PERIOD": -1}.items():
+        args += ["--set", key, str(value)]
+    proc = subprocess.run(
+        [sys.executable, "-m", "monocon_tpu_torch.train", *args], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "rank 0 of 2" in proc.stdout
+    assert (out / "checkpoints" / "epoch_001_final" / "state.pth").is_file()
+    shutil.rmtree(out)  # 235 MB of checkpoint

@@ -60,6 +60,39 @@ def test_losses_match_jax_f64(num_valid, rng):
         assert float(ours["loss_wh"]) == 0.0 and float(ours["loss_dim"]) == 0.0
 
 
+def test_masked_losses_match_jax_f64(rng):
+    """``sample_valid`` (a padded batch's last row masked): the ten losses
+    against the JAX package's with the same mask, and against the port's
+    on the real rows alone."""
+    from monocon_tpu.engine import compute_losses as jax_losses
+    from monocon_tpu.ops.targets import generate_targets as jax_targets
+    from monocon_tpu_torch.engine.train_step import compute_losses
+
+    label = random_label_batch(rng, b=3, o=30, feat_hw=FEAT_HW, pad_hw=PAD_HW)
+    pred = _random_predictions_f64(rng, 3)
+    target = jax.tree.map(np.array, jax_targets(
+        {k: jnp.asarray(v) for k, v in label.items()}, FEAT_HW, PAD_HW,
+        use_pallas=False))
+    valid = np.array([1.0, 1.0, 0.0])
+    with jax.enable_x64(True):
+        theirs = jax_losses({k: jnp.asarray(v) for k, v in pred.items()},
+                            {k: jnp.asarray(v) for k, v in target.items()},
+                            sample_valid=jnp.asarray(valid))
+        theirs = {k: float(v) for k, v in theirs.items()}
+    torch_pred = {k: torch.from_numpy(v) for k, v in pred.items()}
+    torch_target = {k: torch.from_numpy(v) for k, v in target.items()}
+    ours = compute_losses(torch_pred, torch_target,
+                          sample_valid=torch.from_numpy(valid))
+    short = compute_losses({k: v[:2] for k, v in torch_pred.items()},
+                           {k: v[:2] for k, v in torch_target.items()})
+    assert set(ours) == set(theirs) and len(ours) == 10
+    for key, want in theirs.items():
+        np.testing.assert_allclose(float(ours[key]), want, err_msg=key,
+                                   **F64_TOL)
+        np.testing.assert_allclose(float(ours[key]), float(short[key]),
+                                   err_msg=key, **F64_TOL)
+
+
 def optax_parity_over_20_steps(rng, **settings):
     """20 steps of the same gradients (some above the clip norm of 35)
     through the JAX package's optax chain and through the port's AdamW and

@@ -110,9 +110,20 @@ result line:
    defaults (B=128, bf16) and with ``BENCH_DTYPE=float32 BENCH_BATCH=8``,
    each JSON line printed, ``mfu_pct`` in (0, 100]; the kernel seconds
    that ``device_op_seconds`` reads from a ``device_trace`` of a serve loop
-   positive and at most 1.05x the CUDA-event time of the same loop.
+   positive and at most 1.05x the CUDA-event time of the same loop;
+13. spatial: the image height split over two ranks on the one card
+   through gloo (a 1 data x 2 space layout, ``parallel/spatial.py``),
+   each in a process of its own with its 192-row band of the same B=8
+   batch at 384x1280, DLA-34 float32: 4 train steps (the first not
+   timed), the global losses within rtol 1e-3 / atol 1e-4 of the plain
+   step's (phase 11a), parameters bit-equal across the ranks, every
+   backbone level and the neck's output at band height; before them, the
+   banded eval forward + decode against the same model's forward + decode
+   of the whole images: head maps within 1e-3, top-30 equal up to ties;
+   ms/step and peak memory per rank beside the plain step's. The splat
+   kernel launches twice per step on each rank.
 
-The kernels line is printed after phase 12.
+The kernels line is printed after phase 13.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Needs a CUDA device;
@@ -567,12 +578,50 @@ def phase_kernel(rng) -> "tuple[list[dict], float]":
     return shapes, worst
 
 
+def top30_keys(pred, b: int) -> dict:
+    """(cell, class) -> (rank, heatmap peak) of each of image ``b``'s
+    decoded top-30 detections."""
+    from monocon_tpu_torch.ops.heatmap import local_maximum, topk_from_heatmap
+
+    heat, inds, labels, _, _ = topk_from_heatmap(
+        local_maximum(pred["center_heatmap_pred"][b:b + 1]), k=30)
+    return {(int(i), int(c)): (j, float(s)) for j, (s, i, c) in
+            enumerate(zip(heat[0].cpu(), inds[0].cpu(), labels[0].cpu()))}
+
+
+def check_top30(got: tuple, want: tuple, b: int, heat_err: float,
+                what: str) -> int:
+    """The decoded top-30 of image ``b`` as sets keyed by (cell, class),
+    ``got`` and ``want`` each (keys, decoded dict): a detection whose
+    peak clears the 30th by more than twice the heatmaps' difference must
+    be in ``got``, with the same boxes and score; the others may trade
+    places with ties at the 30th. Returns the detections matched."""
+    import torch
+
+    (k_g, dec_g), (k_c, dec_c) = got, want
+    kth = min(s for _, s in k_c.values())
+    matched = 0
+    for cell, (jc, peak) in k_c.items():
+        if cell not in k_g:
+            if peak - kth > 2 * heat_err:
+                raise AssertionError(f"{what}: detection {cell} (peak "
+                                     f"{peak}) missing")
+            continue
+        jg, _ = k_g[cell]
+        for field in ("bboxes_2d", "bboxes_3d", "scores"):
+            x, y = dec_g[field][b, jg].cpu(), dec_c[field][b, jc].cpu()
+            if not torch.allclose(x, y, rtol=1e-3, atol=1e-3):
+                raise AssertionError(f"{what}: {field} of {cell}: {x} vs "
+                                     f"{y}")
+        matched += 1
+    return matched
+
+
 def phase_serve() -> None:
     import torch
 
     from monocon_tpu_torch import create_detector, decode_predictions
     from monocon_tpu_torch.ops.decode import DEFAULT_P2
-    from monocon_tpu_torch.ops.heatmap import local_maximum, topk_from_heatmap
 
     def serve(model, image, p2):
         with torch.no_grad():
@@ -589,13 +638,9 @@ def phase_serve() -> None:
             device=device).eval()
         pred, dec = serve(model, torch.from_numpy(image).to(device),
                           torch.from_numpy(p2).to(device))
-        heat, inds, labels, _, _ = topk_from_heatmap(
-            local_maximum(pred["center_heatmap_pred"]), k=30)
-        # (cell, class) -> (rank, heatmap peak) of each decoded detection.
-        keys = {(int(i), int(c)): (j, float(s)) for j, (s, i, c) in
-                enumerate(zip(heat[0].cpu(), inds[0].cpu(), labels[0].cpu()))}
         outs[device] = ({k: v.cpu() for k, v in pred.items()},
-                        {k: v.cpu() for k, v in dec.items()}, keys)
+                        {k: v.cpu() for k, v in dec.items()},
+                        top30_keys(pred, 0))
     (pred_g, dec_g, k_g), (pred_c, dec_c, k_c) = outs[DEVICE], outs["cpu"]
     for key, want in pred_c.items():
         got = pred_g[key]
@@ -610,24 +655,8 @@ def phase_serve() -> None:
     log(f"[serve] {len(pred_c)} head maps, card against CPU, within atol "
         f"{HEAD_ATOL}; center heatmap max|diff| {heat_err:.3g}")
 
-    # The decoded top-30 as sets keyed by (cell, class): a detection whose
-    # CPU peak clears the 30th by more than twice the card/CPU heatmap
-    # difference must be found on the card, with the same boxes and score;
-    # the others may trade places with ties at the 30th.
-    kth = min(s for _, s in k_c.values())
-    matched = 0
-    for cell, (jc, peak) in k_c.items():
-        if cell not in k_g:
-            if peak - kth > 2 * heat_err:
-                raise AssertionError(f"serve: detection {cell} (peak {peak})"
-                                     " missing on the card")
-            continue
-        jg, _ = k_g[cell]
-        for field in ("bboxes_2d", "bboxes_3d", "scores"):
-            a, b = dec_g[field][0, jg], dec_c[field][0, jc]
-            if not torch.allclose(a, b, rtol=1e-3, atol=1e-3):
-                raise AssertionError(f"serve: {field} of {cell}: {a} vs {b}")
-        matched += 1
+    matched = check_top30((k_g, dec_g), (k_c, dec_c), 0, heat_err,
+                          "serve: card against CPU")
     log(f"[serve] decoded top-30: {matched} detections matched card/CPU, "
         f"{30 - matched} differ only by ties at the 30th score")
 
@@ -1857,10 +1886,12 @@ def same_losses(got: dict, want: dict, what: str) -> float:
     return worst
 
 
-def timed_train_steps(model, steps: int, batch, device) -> dict:
+def timed_train_steps(model, steps: int, batch, device,
+                      layout=None) -> dict:
     """``steps`` train steps of ``model`` (plain or DDP-wrapped) on
-    ``batch``: the first step's losses, ms/step of steps 1.. (host clock,
-    each ending in a synchronise), peak memory and splat launches."""
+    ``batch`` (with ``layout``, this rank's band): the first step's
+    losses, ms/step of steps 1.. (host clock, each ending in a
+    synchronise), peak memory and splat launches."""
     import torch
 
     from monocon_tpu_torch import build_optimizer, train_step
@@ -1874,7 +1905,7 @@ def timed_train_steps(model, steps: int, batch, device) -> dict:
     times, first = [], None
     for _ in range(steps):
         t0 = time.perf_counter()
-        losses = train_step(model, optimizer, solver, batch)
+        losses = train_step(model, optimizer, solver, batch, layout)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         values = {k: float(v) for k, v in losses.items()}
@@ -1900,8 +1931,8 @@ def phase_world_of_one() -> "tuple[dict, int]":
     """Phase 11a: a process group of one rank through NCCL, joined from
     torchrun's environment set here. A DDP-wrapped DLA-34 float32 step at
     B=8 against the plain step from the same weights and batch, in turns
-    (plain, DDP, DDP, plain). Returns the plain step's first losses and the
-    DDP turns' splat launches."""
+    (plain, DDP, DDP, plain). Returns the first plain turn (its first
+    losses, ms/step and peak memory) and the DDP turns' splat launches."""
     import torch
     import torch.distributed as dist
 
@@ -1934,10 +1965,10 @@ def phase_world_of_one() -> "tuple[dict, int]":
         for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                     "MASTER_PORT"):
             os.environ.pop(key)
-    plain = turns[0][1]["losses"]
+    plain = turns[0][1]
     launches = 0
     for kind, run in turns:
-        worst = same_losses(run["losses"], plain, f"{kind} turn")
+        worst = same_losses(run["losses"], plain["losses"], f"{kind} turn")
         if run["launches"] != 2 * PARALLEL_STEPS:
             raise AssertionError(f"parallel: {kind}: splat launched "
                                  f"{run['launches']} times")
@@ -2020,7 +2051,8 @@ def phase_two_ranks(tmp: Path, plain: dict) -> int:
                              f"after {PARALLEL_STEPS} steps")
     launches = 0
     for rank, run in enumerate(runs):
-        worst = same_losses(run["losses"], plain, f"rank {rank} of 2")
+        worst = same_losses(run["losses"], plain["losses"],
+                            f"rank {rank} of 2")
         if run["launches"] != 2 * PARALLEL_STEPS:
             raise AssertionError(f"parallel: rank {rank}: splat launched "
                                  f"{run['launches']} times")
@@ -2064,6 +2096,171 @@ def phase_torchrun_cli(root: Path, out: Path) -> int:
         f"{meta['entire_losses']}, 84 finite AP keys, checkpoints {saved}, "
         f"splat launches {2 * LOOP_STEPS}; {wall:.3f} s wall")
     return 2 * LOOP_STEPS
+
+
+def spatial_worker(out_path: str) -> None:
+    """One of two ranks on card 0 through gloo (phase 13), run by
+    ``python -c``: a 1 data x 2 space layout of the 384x1280 canvas,
+    DLA-34 float32 from the seed, this rank's band (192 rows) of the whole
+    B=8 batch. First, in eval mode, the banded forward + decode of the
+    batch against the same model's plain forward + decode of the whole
+    images; then ``PARALLEL_STEPS`` train steps under ``data_parallel``
+    (the first not timed), the backbone's and the neck's output heights
+    in the first; then the trained model's two forwards once more (their
+    largest difference over each map's largest value, printed only: four
+    steps on random labels can push the depth map's ``1/sigmoid - 1`` to
+    values where float32 rounding alone moves it by more than 1e-3).
+    Writes the losses, ms/step, peak memory, splat launches, a SHA-256 of
+    the parameters' bytes, the heights and the eval comparisons."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from monocon_tpu_torch import create_detector, decode_predictions
+    from monocon_tpu_torch.ops.decode import DEFAULT_P2
+    from monocon_tpu_torch.ops.image_norm import normalize_if_raw
+    from monocon_tpu_torch.parallel import (data_parallel,
+                                            initialize_distributed,
+                                            spatial_layout, spatial_scope)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = initialize_distributed("cuda", backend="gloo")
+    layout = spatial_layout(PAD_HW[0], 2)
+    model = create_detector(
+        34, generator=torch.Generator().manual_seed(SEED), device=device)
+    whole = rank_batch(device, 0, 1)
+    start, stop = layout.band
+    batch = {"img": whole["img"][:, start:stop], "label": whole["label"]}
+
+    def forwards():
+        """(banded, whole-image) eval predictions of the batch."""
+        model.eval()
+        with torch.no_grad():
+            plain = model(normalize_if_raw(whole["img"]))
+            with spatial_scope(model, layout):
+                banded = model(normalize_if_raw(batch["img"], row0=start))
+        if any(banded[k].shape != plain[k].shape
+               or not torch.isfinite(banded[k]).all() for k in plain):
+            raise AssertionError("spatial: banded head maps' shapes or "
+                                 "values")
+        return banded, plain
+
+    run = {}
+    banded, plain = forwards()
+    p2 = torch.from_numpy(np.tile(DEFAULT_P2[None], (TRAIN_BATCH, 1, 1))
+                          ).to(device)
+    decoded = [decode_predictions(pred, p2, PAD_HW)
+               for pred in (banded, plain)]
+    errors = {k: float((banded[k] - plain[k]).abs().max()) for k in plain}
+    run["eval_max_abs"] = max(errors.values())
+    run["top30_matched"] = sum(
+        check_top30((top30_keys(banded, b), decoded[0]),
+                    (top30_keys(plain, b), decoded[1]), b,
+                    errors["center_heatmap_pred"],
+                    f"spatial: image {b}, bands against whole")
+        for b in range(TRAIN_BATCH))
+
+    heights = {}
+
+    def record(name):
+        def hook(module, args, out):
+            outs = out if isinstance(out, tuple) else (out,)
+            heights.setdefault(name, [t.shape[2] for t in outs])
+        return hook
+
+    hooks = [model.backbone.register_forward_hook(record("backbone")),
+             model.neck.register_forward_hook(record("neck"))]
+    run.update(timed_train_steps(data_parallel(model, device),
+                                 PARALLEL_STEPS, batch, device, layout))
+    for h in hooks:
+        h.remove()
+    digest = hashlib.sha256()
+    for p in model.parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    run.update(params_sha256=digest.hexdigest(), heights=heights,
+               band=[start, stop])
+    banded, plain = forwards()
+    run["trained_eval_rel"] = max(
+        float((banded[k] - plain[k]).abs().max() / plain[k].abs().max())
+        for k in plain)
+    Path(out_path).write_text(json.dumps(run))
+    dist.destroy_process_group()
+
+
+def phase_spatial(tmp: Path, plain: dict) -> int:
+    """Phase 13: the image height split over two ranks on the one card
+    through gloo (1 data x 2 space, 384x1280, B=8, DLA-34 float32). The
+    first step's global losses against one process's (phase 11a's plain
+    step), parameters bit-equal across the ranks, 2 splat launches per
+    step per rank, every backbone level and the neck's output at band
+    height; the banded eval forward's head maps (the model from the seed)
+    within ``HEAD_ATOL`` of the whole-image forward's and the top-30 equal
+    up to ties. Returns the ranks' splat launches."""
+    import torch
+
+    from monocon_tpu_torch.parallel.distributed import free_port
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    port, procs, outs = free_port(), [], []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        outs.append(tmp / f"spatial_{rank}.json")
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK="0", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.spatial_worker(sys.argv[1])", str(outs[-1])],
+            cwd=Path(__file__).resolve().parent, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate(timeout=TWO_RANK_TIMEOUT_S)[0] for p in procs]
+    wall = time.perf_counter() - t0
+    for rank, (proc, text) in enumerate(zip(procs, logs)):
+        (tmp / f"spatial_{rank}.log").write_text(text)
+        if proc.returncode != 0:
+            raise AssertionError(f"spatial: rank {rank} exited "
+                                 f"{proc.returncode}:\n{text[-3000:]}")
+    runs = [json.loads(o.read_text()) for o in outs]
+    if runs[0]["params_sha256"] != runs[1]["params_sha256"]:
+        raise AssertionError("spatial: the two ranks' parameters differ "
+                             f"after {PARALLEL_STEPS} steps")
+    launches = 0
+    for rank, run in enumerate(runs):
+        worst = same_losses(run["losses"], plain["losses"],
+                            f"spatial rank {rank} of 2")
+        if run["launches"] != 2 * PARALLEL_STEPS:
+            raise AssertionError(f"spatial: rank {rank}: splat launched "
+                                 f"{run['launches']} times")
+        band = run["band"][1] - run["band"][0]
+        want = {"backbone": [band >> i for i in range(6)],
+                "neck": [band // 4]}
+        if run["heights"] != want or band >= PAD_HW[0]:
+            raise AssertionError(f"spatial: rank {rank}'s activation "
+                                 f"heights {run['heights']}, not {want}")
+        if run["eval_max_abs"] > HEAD_ATOL:
+            raise AssertionError(f"spatial: rank {rank}: banded head maps "
+                                 f"{run['eval_max_abs']} from the whole "
+                                 "image's")
+        launches += run["launches"]
+        log(f"[spatial] rank {rank} of 1x2, rows {run['band']}, B={TRAIN_BATCH}"
+            f" {PAD_HW[0]}x{PAD_HW[1]} float32: {run['ms']:.3f} ms/step over "
+            f"steps 1-{PARALLEL_STEPS - 1} (one process: {plain['ms']:.3f}),"
+            f" max_memory_allocated {run['peak']} bytes (one process: "
+            f"{plain['peak']}), splat launches {run['launches']}, first "
+            f"global losses within {worst:.3g} of one process; backbone "
+            f"heights {run['heights']['backbone']}, neck "
+            f"{run['heights']['neck']}; eval head maps within "
+            f"{run['eval_max_abs']:.3g} of the whole image's, top-30 "
+            f"{run['top30_matched']} of {30 * TRAIN_BATCH} matched, the rest "
+            f"ties; after the steps within {run['trained_eval_rel']:.3g} of "
+            "each map's largest value")
+    log(f"[spatial] the two ranks' parameters are bit-equal after "
+        f"{PARALLEL_STEPS} steps (SHA-256 {runs[0]['params_sha256'][:16]}); "
+        f"{wall:.3f} s wall for both processes")
+    return launches
 
 
 def run_bench(env: dict) -> dict:
@@ -2160,6 +2357,7 @@ def main() -> int:
         by_path["torchrun_cli"] = phase_torchrun_cli(
             Path(tmp) / "kitti_train", Path(tmp) / "run_torchrun")
         phase_bench(Path(tmp))
+        by_path["spatial"] = phase_spatial(Path(tmp), plain)
     # The numbers of the path whose launches the line reports: run D's.
     entry = splat_entry(loop_calls, max(
         worst, *(s["max_abs_err"] for s in loop_calls)))

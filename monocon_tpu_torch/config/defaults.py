@@ -3,8 +3,8 @@
 A copy of ``monocon_tpu/config/defaults.py``: the same key tree, ``TPU.*``
 included, so that the files in ``configs/`` load in both packages. Files are
 read and written by ``yaml_subset.py``, with no PyYAML (the card's machine
-has none). :func:`check_port_support` refuses the one setting the port does
-not run yet.
+has none). The port runs every setting of the tree; the engine refuses
+what the JAX engine refuses (``engine/engine.py``).
 """
 
 from __future__ import annotations
@@ -124,13 +124,16 @@ _DEFAULTS: Dict[str, Any] = {
     },
     # The JAX package's accelerator knobs, under the same name so that one
     # config file serves both packages. The port reads all but
-    # PALLAS_TARGETS, and refuses SPATIAL_SHARDS > 1 (check_port_support).
+    # PALLAS_TARGETS.
     "TPU": {
         "COMPUTE_DTYPE": "float32",
         # Processes, one per GPU (-1: every visible GPU; on the CPU, one),
         # clamped to divide DATA.BATCH_SIZE (parallel/distributed.py).
         "NUM_DEVICES": -1,
         "GRAD_ACCUM_STEPS": 1,
+        # Bands of the canvas height, one a rank: NUM_DEVICES processes
+        # form (NUM_DEVICES // SPATIAL_SHARDS) data shards x SPATIAL_SHARDS
+        # (parallel/mesh.py); needs a static PAD_HW.
         "SPATIAL_SHARDS": 1,
         "MULTIHOST": False,
         "PREFETCH_BATCHES": 2,        # batches the loader prepares ahead
@@ -162,12 +165,3 @@ def export_cfg(cfg: ConfigNode, save_path: str) -> None:
     with open(save_path, "w") as f:
         f.write(cfg.dump())
 
-
-def check_port_support(cfg: ConfigNode) -> None:
-    """Raise ``NotImplementedError`` for the setting the port does not run
-    yet, ``TPU.SPATIAL_SHARDS > 1`` (the image height split over devices),
-    naming the ROADMAP item that will bring it."""
-    if cfg.TPU.SPATIAL_SHARDS > 1:
-        raise NotImplementedError(
-            f"TPU.SPATIAL_SHARDS={cfg.TPU.SPATIAL_SHARDS}: the port splits "
-            "batches over GPUs but not the image height; ROADMAP item 22")

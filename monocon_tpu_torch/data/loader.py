@@ -26,7 +26,10 @@ the ranks together see the pixels and labels that one process sees; the
 remainder batch is padded cyclically to the global batch, as the JAX
 loader's ``pad_to_batch`` pads it, and each batch carries ``valid`` (its
 rows' 0/1, a device tensor) and ``num_valid`` (the global batch's real
-rows).
+rows). With the image height split over ranks, ``rank`` and ``world`` are
+the data shard's, and ``band`` keeps the rows of the canvas that this rank
+holds: only they go to the device; labels, ``img_hw``, ``p2`` and the
+metas stay whole.
 """
 
 from __future__ import annotations
@@ -147,7 +150,9 @@ class DataLoader:
     ``labels=True`` also its ``label`` arrays, and over several ranks its
     ``valid``) as tensors on ``device`` (see the module docstring), the
     rest as on the host. ``batch_size`` is the global batch, of which rank
-    ``rank`` of ``world`` loads ``batch_size // world`` rows.
+    ``rank`` of ``world`` loads ``batch_size // world`` rows, and with
+    ``band = (start, stop)`` sends the canvas rows ``[start, stop)`` alone
+    (a static ``pad_hw`` only).
     """
 
     def __init__(
@@ -163,10 +168,13 @@ class DataLoader:
         labels: bool = False,
         rank: int = 0,
         world: int = 1,
+        band: Optional[Tuple[int, int]] = None,
     ):
         if batch_size % world:
             raise ValueError(f"a global batch of {batch_size} does not "
                              f"split over {world} ranks")
+        if band is not None and pad_hw is None:
+            raise ValueError("a band of the canvas needs a static pad_hw")
         self.dataset = dataset
         self.device = torch.device(device)
         self.batch_size = batch_size
@@ -179,6 +187,7 @@ class DataLoader:
         self.labels = labels
         self.rank = rank
         self.world = world
+        self.band = band
         self.epoch = 0
         # The pinned canvases of the CUDA path, and the event of the last
         # copy that read each.
@@ -215,6 +224,8 @@ class DataLoader:
         pad_hw = self.pad_hw or (max(s["img"].shape[0] for s in samples),
                                  max(s["img"].shape[1] for s in samples))
         dtype = torch.from_numpy(samples[0]["img"][:0]).dtype
+        if self.band is not None:
+            pad_hw = (self.band[1] - self.band[0], pad_hw[1])
         shape = (self.batch_size // self.world, *pad_hw, 3)
         canvas = self._staging[slot]
         if canvas is None or canvas.shape != shape or canvas.dtype != dtype:
@@ -288,10 +299,17 @@ class DataLoader:
                         slot = bi % STAGING_BUFFERS
                         canvas = (self._pinned_canvas(slot, samples)
                                   if pinned else None)
+                        banded = self.band is not None
                         batch = collate(
                             samples, self.pad_hw,
-                            out_images=(None if canvas is None
+                            out_images=(None if canvas is None or banded
                                         else canvas.numpy()))
+                        if banded:
+                            band = batch["img"][:, slice(*self.band)]
+                            if canvas is None:
+                                batch["img"] = np.ascontiguousarray(band)
+                            else:
+                                canvas.numpy()[:] = band
                         if self.world > 1:
                             batch[VALID_KEY] = np.array(
                                 [v for _, v in rows], np.float32)

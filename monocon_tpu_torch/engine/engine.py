@@ -64,6 +64,17 @@ that rank 0 finds. Evaluation gathers the ranks' KITTI annotations on rank
 prints, writes ``config.yaml``, the checkpoints and the metrics file,
 and draws (``visualize``). Eval-mode forwards use the unwrapped
 ``model``.
+
+The image height split over ranks. ``TPU.SPATIAL_SHARDS = S > 1`` needs a
+static ``TPU.PAD_HW`` whose height ``S`` divides within the JAX package's
+envelope (``parallel/mesh.py``); the engine checks both before it touches
+data, as the JAX engine does, and needs a process group of ``D x S``
+ranks. Rank ``r`` loads the rows of data shard ``r // S`` and uploads band
+``r % S`` of their canvas; training wraps the model over every rank,
+takes BN moments over every rank and loss sums over the data shards, and
+the heads' maps are gathered whole on every rank of a band group
+(``engine/train_step.py``). Evaluation runs the same banded forward, and
+the detections of each data shard come from its first band's rank.
 """
 
 from __future__ import annotations
@@ -77,8 +88,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config import (ConfigNode, check_port_support, export_cfg,
-                      get_default_cfg, load_cfg)
+from ..config import ConfigNode, export_cfg, get_default_cfg, load_cfg
 from ..data.loader import DataLoader, use_on_current_stream
 from ..data.monocon_dataset import MonoConDataset
 from ..data.transforms import default_test_transforms, default_train_transforms
@@ -87,6 +97,9 @@ from ..models.detector import create_detector
 from ..ops.decode import decode_predictions
 from ..ops.image_norm import normalize_if_raw
 from ..parallel import data_parallel, rank_and_world, replicate_state
+from ..parallel.mesh import (SpatialLayout, spatial_layout,
+                             validate_spatial_shards)
+from ..parallel.spatial import spatial_scope
 from ..solver.schedule import build_optimizer
 from ..utils.convert import (
     convert_to_kitti_2d,
@@ -111,20 +124,26 @@ EVAL_CLASSES = ("Pedestrian", "Cyclist", "Car")
 
 
 def dispatch_detection(model, image: torch.Tensor, img_hw: torch.Tensor,
-                       p2: torch.Tensor, events: Optional[list] = None):
+                       p2: torch.Tensor, events: Optional[list] = None,
+                       layout: Optional[SpatialLayout] = None):
     """Queue the normalisation, forward and decode of a (B, H, W, 3) batch
     already on the model's device, and on the card also the copy of the
     decoded arrays into pinned host memory. Returns (decoded, the copy's
     event or None) without waiting for the card. ``events``, on the card,
-    receives the (start, end) CUDA events around the device work."""
+    receives the (start, end) CUDA events around the device work. With a
+    ``layout`` of several bands, ``image`` is this rank's band of the
+    canvas, and every rank of its space group decodes the whole maps."""
     cuda = image.device.type == "cuda"
     if events is not None and cuda:
         start = torch.cuda.Event(enable_timing=True)
         start.record()
-    with torch.no_grad():
-        image = normalize_if_raw(image, img_hw)
+    row0, pad_h = 0, image.shape[1]
+    if layout is not None and layout.spatial > 1:
+        row0, pad_h = layout.band[0], layout.pad_h
+    with torch.no_grad(), spatial_scope(model, layout):
+        image = normalize_if_raw(image, img_hw, row0)
         decoded = decode_predictions(model(image), p2,
-                                     (image.shape[1], image.shape[2]))
+                                     (pad_h, image.shape[2]))
     if not cuda:
         return decoded, None
     if events is not None:
@@ -162,13 +181,33 @@ class MonoConEngine:
             cfg = get_default_cfg()
         elif isinstance(cfg, str):
             cfg = load_cfg(cfg)
-        check_port_support(cfg)
         self.cfg = cfg
         self.is_test = is_test
+        spatial = max(1, int(cfg.TPU.SPATIAL_SHARDS))
+        if spatial > 1:
+            # As the JAX engine (engine.py:96-109): a static canvas whose
+            # height the bands split within the envelope.
+            if not cfg.TPU.PAD_HW:
+                raise ValueError(
+                    "TPU.SPATIAL_SHARDS > 1 requires a static TPU.PAD_HW "
+                    "canvas (spatial sharding splits the canvas height)")
+            validate_spatial_shards(int(cfg.TPU.PAD_HW[0]), spatial)
         self.device = resolve_device(device)
-        # The process group's shape: this rank of `world`.
+        # The process group's shape: this rank of `world`; with bands,
+        # data shard `data_rank` of `data_world`.
         self.rank, self.world = rank_and_world()
         self.is_main = self.rank == 0
+        self.layout: Optional[SpatialLayout] = None
+        self.data_rank, self.data_world = self.rank, self.world
+        if spatial > 1:
+            if self.world % spatial:
+                raise ValueError(
+                    f"TPU.SPATIAL_SHARDS={spatial} needs a process group of "
+                    f"a multiple of {spatial} ranks, not {self.world}: set "
+                    "TPU.NUM_DEVICES, or launch with torchrun")
+            self.layout = spatial_layout(int(cfg.TPU.PAD_HW[0]), spatial)
+            self.data_rank = self.layout.data_index
+            self.data_world = self.layout.data_shards
 
         # Counters (1-based, reference base_engine.py:35-42).
         self.epochs = 1
@@ -282,8 +321,9 @@ class MonoConEngine:
             seed=max(cfg.SEED, 0),
             prefetch_batches=cfg.TPU.PREFETCH_BATCHES,
             labels=is_train,
-            rank=self.rank,
-            world=self.world,
+            rank=self.data_rank,
+            world=self.data_world,
+            band=None if self.layout is None else self.layout.band,
         )
         return dataset, loader
 
@@ -390,7 +430,8 @@ class MonoConEngine:
                 if batch_idx < skip_steps:
                     continue
                 losses = train_step(self.train_model, self.optimizer,
-                                    self.solver, use_on_current_stream(batch))
+                                    self.solver, use_on_current_stream(batch),
+                                    self.layout)
                 self.entire_losses.append(losses["total_loss"])
                 if self.global_iters % self.log_period == 0:
                     self._log_step(losses, batch_idx + 1, steps)
@@ -429,6 +470,9 @@ class MonoConEngine:
                 if self.device.type == "cuda" else "CPU")
         if self.world > 1:
             kind += f", rank 0 of {self.world}"
+        if self.layout is not None:
+            kind += (f" ({self.layout.data_shards} data x "
+                     f"{self.layout.spatial} space)")
         print("=" * 70)
         print(f" MonoCon Engine (PyTorch port) | {self.cfg.VERSION}")
         print(f" - Description : {self.cfg.DESCRIPTION}")
@@ -542,22 +586,28 @@ class MonoConEngine:
                 for key in ("img_bbox", "img_bbox2d")}
 
     def _gather_batches(self, per_batch: List[Any]) -> List[Any]:
-        """Each rank's per-batch results (lists, or dicts of lists, of its
-        valid rows), interleaved on rank 0 batch by batch and rank by rank:
-        the split's order. Other ranks get an empty list."""
+        """Each data shard's per-batch results (lists, or dicts of lists,
+        of its valid rows), interleaved on rank 0 batch by batch and shard
+        by shard: the split's order. With bands, the first band's rank of
+        each shard gives them, so that none counts twice. Other ranks get
+        an empty list."""
         if self.world == 1:
             return per_batch
+        first_band = self.layout is None or self.layout.space_index == 0
         gathered = [None] * self.world if self.is_main else None
-        dist.gather_object(per_batch, gathered, dst=0)
+        dist.gather_object(per_batch if first_band else None, gathered,
+                           dst=0)
         if not self.is_main:
             return []
-        return [part for parts in zip(*gathered) for part in parts]
+        shards = [g for g in gathered if g is not None]
+        return [part for parts in zip(*shards) for part in parts]
 
     def _valid_rows(self, rows: List[Any], batch: Dict[str, Any]) -> List[Any]:
-        """This rank's ``rows`` of a loader batch without its padding."""
+        """This data shard's ``rows`` of a loader batch without its
+        padding."""
         if "num_valid" not in batch:
             return rows
-        keep = batch["num_valid"] - self.rank * len(rows)
+        keep = batch["num_valid"] - self.data_rank * len(rows)
         return rows[:min(max(keep, 0), len(rows))]
 
     def _dispatch_eval(self, batch: Dict[str, Any], events=None):
@@ -565,7 +615,7 @@ class MonoConEngine:
         the copy of the result to pinned host memory."""
         dev = use_on_current_stream(batch)
         return dispatch_detection(self.model, dev["img"], dev["img_hw"],
-                                  dev["p2"], events)
+                                  dev["p2"], events, self.layout)
 
     def _finalize_eval(self, dispatched, batch: Dict[str, Any],
                        vis_format: bool = False):

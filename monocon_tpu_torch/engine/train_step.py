@@ -5,6 +5,11 @@ reference's (wh 0.1, all others 1.0). Targets are constants, so they are
 built under ``no_grad`` and stay float32 whatever the model's compute
 dtype; on the card their Gaussian heatmaps come from the CUDA splat kernel
 (two launches per step, and per micro-step when gradients accumulate).
+
+With the image height split over ranks (a :class:`SpatialLayout`), each
+rank holds one band of its data shard's images and the whole-height head
+maps come back on every rank of the space group: each generates the whole
+targets (its two splat launches) and the same losses from them.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from ..models.layers import batch_stats_scope
 from ..ops.heatmap import gather_feature
 from ..ops.image_norm import normalize_if_raw
 from ..ops.targets import generate_targets
+from ..parallel.mesh import SpatialLayout
+from ..parallel.spatial import spatial_scope
 from ..solver.schedule import Solver
 
 FEAT_STRIDE = 4
@@ -114,27 +121,32 @@ def compute_losses(pred: Dict[str, torch.Tensor],
 
 
 def reduce_loss_terms(terms: Dict[str, LossTerm],
-                      group: Optional[dist.ProcessGroup] = None
+                      group: Optional[dist.ProcessGroup] = None,
+                      scale: Optional[int] = None
                       ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """(the losses of the global batch, the objective this rank
     differentiates).
 
-    With no group, the losses of this batch and their sum. Over a group,
-    every term's sums are added over the ranks in one all-reduce, so each
-    rank reads the global losses, as the JAX package's SPMD step computes
-    them; the objective is ``world`` times this rank's share of their sum
-    (its sums over the global normalisers), so that the gradients that
-    DistributedDataParallel averages over the ranks are those of the
-    global loss."""
+    With no group, the losses of this batch and ``scale`` (default 1)
+    times their sum. Over a group, every term's sums are added over the
+    ranks in one all-reduce, so each rank reads the global losses, as the
+    JAX package's SPMD step computes them; the objective is ``scale``
+    (default the group's size) times this rank's share of their sum (its
+    sums over the global normalisers), so that the gradients that
+    DistributedDataParallel averages over its ``scale`` ranks are those of
+    the global loss. With the height split, ``group`` is the data group
+    (the ranks of a space group hold the same sums) and ``scale`` every
+    rank: each band's part of the gradient reaches it through the
+    gathered maps' backward."""
     if group is None:
         losses = {k: t.value() for k, t in terms.items()}
-        return losses, sum(losses.values())
+        return losses, (scale or 1) * sum(losses.values())
     dtype = next(iter(terms.values())).nums.dtype
     parts = [torch.cat([t.nums.detach().to(dtype), t.dens.to(dtype)])
              for t in terms.values()]
     flat = torch.cat(parts)
     dist.all_reduce(flat, group=group)
-    world = dist.get_world_size(group)
+    world = scale or dist.get_world_size(group)
     losses, objective = {}, 0.0
     for (name, term), total in zip(terms.items(),
                                    flat.split([len(p) for p in parts])):
@@ -146,8 +158,9 @@ def reduce_loss_terms(terms: Dict[str, LossTerm],
 
 
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-               solver: Solver,
-               batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+               solver: Solver, batch: Dict[str, Any],
+               layout: Optional[SpatialLayout] = None
+               ) -> Dict[str, torch.Tensor]:
     """One micro-step on ``batch = {'img': (B,H,W,3), 'label': {...},
     'img_hw': optional (B,2), 'valid': optional (B,)}``, all on the model's
     device: the solver steps AdamW on this batch's gradient, or with
@@ -159,24 +172,37 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     loss and no BN moment. A ``DistributedDataParallel`` model over more
     than one rank takes its rows of the global batch: BN moments and loss
     normalisers are those of the global batch, the losses returned are the
-    global ones, and the averaged gradient is the global loss's."""
+    global ones, and the averaged gradient is the global loss's.
+
+    ``layout`` splits the height: ``batch['img']`` holds this rank's band
+    of the canvas (``layout.band``), the rest is its data shard's whole
+    rows, and the model is wrapped over every rank of the layout."""
     group = None
     if isinstance(model, DistributedDataParallel):
         group = model.process_group
         if dist.get_world_size(group) == 1:
             group = None
+    loss_group, scale = group, None
+    row0, pad_h = 0, batch["img"].shape[1]
+    if layout is not None and layout.spatial > 1:
+        if group is None:
+            raise ValueError("a step on bands of rows needs the model "
+                             "wrapped over every rank (data_parallel)")
+        loss_group, scale = layout.data_group, dist.get_world_size(group)
+        row0, pad_h = layout.band[0], layout.pad_h
     valid = batch.get("valid")
-    img = normalize_if_raw(batch["img"], batch.get("img_hw"))
-    pad_hw = (img.shape[1], img.shape[2])
+    img = normalize_if_raw(batch["img"], batch.get("img_hw"), row0)
+    pad_hw = (pad_h, img.shape[2])
     feat_hw = (pad_hw[0] // FEAT_STRIDE, pad_hw[1] // FEAT_STRIDE)
     with torch.no_grad():
         target = generate_targets(batch["label"], feat_hw, pad_hw)
 
     model.train()
-    with batch_stats_scope(model, group, valid):
+    with spatial_scope(model, layout), batch_stats_scope(model, group,
+                                                         valid):
         pred = model(img)
     losses, objective = reduce_loss_terms(
-        loss_terms(pred, target, sample_valid=valid), group)
+        loss_terms(pred, target, sample_valid=valid), loss_group, scale)
     optimizer.zero_grad(set_to_none=True)
     objective.backward()
     solver.step()

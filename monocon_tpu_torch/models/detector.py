@@ -25,6 +25,13 @@ once, torch after each op; each convolution library accumulates in its
 own order), so bfloat16 parity with the JAX package is held to a multiple
 of the JAX package's own bfloat16-to-float32 gap
 (``tests/test_torch_bf16.py``), not to float32 tolerances.
+
+The image height split over ranks. Inside ``parallel.spatial_scope``
+the forward takes this rank's band of the canvas's rows and returns the
+whole-height head maps on every rank of its space group: the
+convolutions exchange halo rows, the attentive norms pool over the whole
+map, and the heads gather their outputs (``layers.py``, ``neck.py``,
+``heads.py``).
 """
 
 from __future__ import annotations

@@ -8,6 +8,11 @@ package's W-block space-to-depth stem is a TPU layout for the same
 convolutions with the same parameters, so it has no counterpart here.
 Module names are the reference's torch keys (``base_layer.0``,
 ``level2.tree1.conv1``, ``level3.project.0``, ...).
+
+On a band of rows (``TPU.SPATIAL_SHARDS > 1``) the stem's 7x7 and every
+3x3 take their halo rows (``layers.Conv2d``); the trees' 2x2 max pools and
+the 1x1 convs need none, since every band starts on an even row of every
+level.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import batch_norm, conv_bn_relu_layers
+from .layers import Conv2d, batch_norm, conv_bn_relu_layers
 
 # (block, per-level depths, per-level channels, residual root), as in the
 # JAX package (dla.py:399-404) and the reference.
@@ -37,10 +42,10 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, stride=stride, padding=1,
+                            bias=False)
         self.bn1 = batch_norm(out_ch)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1, bias=False)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1, bias=False)
         self.bn2 = batch_norm(out_ch)
 
     def forward(self, x, residual=None):
@@ -60,8 +65,8 @@ class Bottleneck(nn.Module):
         bottle = out_ch // 2
         self.conv1 = nn.Conv2d(in_ch, bottle, 1, bias=False)
         self.bn1 = batch_norm(bottle)
-        self.conv2 = nn.Conv2d(bottle, bottle, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv2 = Conv2d(bottle, bottle, 3, stride=stride, padding=1,
+                            bias=False)
         self.bn2 = batch_norm(bottle)
         self.conv3 = nn.Conv2d(bottle, out_ch, 1, bias=False)
         self.bn3 = batch_norm(out_ch)

@@ -6,17 +6,26 @@ Port of ``monocon_tpu/models/heads.py``. Each branch is the reference's
 that reference keys load as they are. Outputs are NHWC, float32: under
 bfloat16 compute the convolutions' outputs are cast to float32 before the
 post-ops (sigmoid clamp, depth transform), as in the JAX package.
+
+On a band of rows (``TPU.SPATIAL_SHARDS > 1``) the 3x3 convolutions take
+their halos and the attentive norms pool over the whole map
+(``layers.py``); the outputs of the last convolutions, about 70 channels
+at a quarter of the canvas, are gathered along H in one collective before
+the post-ops, so that every rank of the space group returns the whole
+maps.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from .layers import AttnBatchNorm
+from ..parallel.mesh import SpatialLayout
+from ..parallel.spatial import gather_rows
+from .layers import AttnBatchNorm, Conv2d
 
 EPS = 1e-12
 HEAT_MIN, HEAT_MAX = 1e-4, 1.0 - 1e-4
@@ -39,7 +48,7 @@ _BRANCHES = {
 def head_branch(in_ch: int, feat_ch: int, out_ch: int) -> nn.Sequential:
     """3x3 conv -> AttnBN(10) -> ReLU -> 1x1 conv."""
     return nn.Sequential(
-        nn.Conv2d(in_ch, feat_ch, 3, padding=1),
+        Conv2d(in_ch, feat_ch, 3, padding=1),
         AttnBatchNorm(feat_ch),
         nn.ReLU(inplace=True),
         nn.Conv2d(feat_ch, out_ch, 1),
@@ -52,6 +61,8 @@ class MonoConHeads(nn.Module):
     kpt_heatmap_offset, center2kpt_offset (18), dim (3); depth
     (``[1/sigmoid(x) - 1, log_var]``); alpha_cls, alpha_offset (12)."""
 
+    spatial: Optional[SpatialLayout] = None
+
     def __init__(self, in_ch: int, num_classes: int = 3,
                  num_kpts: int = 9, num_alpha_bins: int = 12):
         super().__init__()
@@ -62,7 +73,7 @@ class MonoConHeads(nn.Module):
         for name, width in zip(_BRANCHES, widths):
             self.add_module(name, head_branch(in_ch, feat_ch, width))
         self.dir_feat = nn.Sequential(
-            nn.Conv2d(in_ch, feat_ch, 3, padding=1),
+            Conv2d(in_ch, feat_ch, 3, padding=1),
             AttnBatchNorm(feat_ch),
             nn.ReLU(inplace=True),
         )
@@ -78,6 +89,11 @@ class MonoConHeads(nn.Module):
         dir_feat = self.dir_feat(feat)
         out["alpha_cls"] = self.dir_cls(dir_feat).permute(0, 2, 3, 1).float()
         out["alpha_offset"] = self.dir_reg(dir_feat).permute(0, 2, 3, 1).float()
+        if self.spatial is not None:
+            widths = [v.shape[-1] for v in out.values()]
+            whole = gather_rows(torch.cat(list(out.values()), -1),
+                                self.spatial)
+            out = dict(zip(out, whole.split(widths, -1)))
 
         for key in ("center_heatmap", "kpt_heatmap"):
             out[key] = torch.clamp(torch.sigmoid(out[key]), HEAT_MIN, HEAT_MAX)

@@ -20,6 +20,17 @@ always did. ``nn.SyncBatchNorm`` is not used: it runs only on CUDA tensors,
 and ``convert_sync_batchnorm`` would replace the two subclasses below by a
 plain BatchNorm. Nor is ``torch.distributed.nn.functional.all_reduce``,
 deprecated in torch 2.13: :class:`AllReduceSum` is its sum.
+
+The image height split over ranks (``TPU.SPATIAL_SHARDS > 1``,
+``parallel/spatial.py``). Inside ``spatial_scope`` each rank holds one band
+of rows: :class:`Conv2d` takes the rows its window reaches from the bands
+above and below before it convolves; BatchNorm's sums, already added over
+the group of a ``batch_stats_scope``, count every band once when that
+group is every rank; :class:`AttnWeights` adds its per-sample pooled sums
+over the space group, in training and evaluation; and the
+:class:`MomentsBatchNorm` after it, which then sees the same (B, K, 1, 1)
+on every band, takes its moments over the data group alone, so that no
+row counts ``S`` times.
 """
 
 from __future__ import annotations
@@ -32,6 +43,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import SpatialLayout
+from ..parallel.spatial import HaloExchange
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -148,13 +162,36 @@ def batch_norm(channels: int) -> BatchNorm2d:
     return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with a padding of ``kernel // 2`` that, on a band of
+    rows (``spatial`` set by ``spatial_scope``), first takes the rows its
+    window reaches from the neighbouring bands: ``padding`` above and
+    ``kernel - padding - stride`` below (3 and 3 for the 7x7 stem, 1 and 1
+    for a 3x3, the row above alone for a 3x3 of stride 2, whose bands
+    start on even rows), then convolves with no padding in H."""
+
+    spatial: Optional[SpatialLayout] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spatial is None:
+            return super().forward(x)
+        (kh, _), (sh, _), (ph, pw) = (self.kernel_size, self.stride,
+                                      self.padding)
+        if x.shape[2] % sh:
+            raise ValueError(f"a band of {x.shape[2]} rows under a stride "
+                             f"of {sh}")
+        x = HaloExchange.apply(x, ph, max(kh - ph - sh, 0), self.spatial)
+        return F.conv2d(x, self.weight, self.bias, self.stride, (0, pw),
+                        self.dilation, self.groups)
+
+
 def conv_bn_relu_layers(in_ch: int, out_ch: int, kernel_size: int = 3,
                         stride: int = 1) -> list:
     """[conv, bn, relu]: one conv block as the reference ``Sequential`` keys
     it (``level0.0``/``level0.1``, ``base_layer.0``/``base_layer.1``)."""
     return [
-        nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
-                  padding=kernel_size // 2, bias=False),
+        Conv2d(in_ch, out_ch, kernel_size, stride=stride,
+               padding=kernel_size // 2, bias=False),
         batch_norm(out_ch),
         nn.ReLU(inplace=True),
     ]
@@ -165,7 +202,7 @@ class ConvBnRelu(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False)
+        self.conv = Conv2d(in_ch, out_ch, 3, padding=1, bias=False)
         self.bn1 = batch_norm(out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -189,9 +226,21 @@ class MomentsBatchNorm(BatchNorm2d):
 
     A bfloat16 input is normalised in float32, from float32 moments, and
     the result cast back, as flax's BatchNorm does under ``dtype=bfloat16``.
+
+    On a band of rows (``spatial`` set) every rank of a space group holds
+    the same input: in training the moments are taken over the data group
+    (the ranks of this band) and the valid rows of an enclosing
+    ``batch_stats_scope``.
     """
 
+    spatial: Optional[SpatialLayout] = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.spatial is not None:
+            valid = (None if self.batch_stats is None
+                     else self.batch_stats.valid)
+            return scoped_batch_norm(
+                self, x, BatchStats(self.spatial.data_group, valid))
         if not self.training or self.batch_stats is not None:
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
@@ -215,7 +264,11 @@ class AttnWeights(nn.Module):
     """Instance attention over K affines: RSD pooling over H, W, then a 1x1
     conv, a BN and a hard sigmoid. Returns (B, K).
 
-    The moments are one-pass and unbiased, as in the JAX package."""
+    The moments are one-pass and unbiased, as in the JAX package. On a band
+    of rows (``spatial`` set) the sums, sums of squares and counts are
+    added over the space group, so that they are the whole map's."""
+
+    spatial: Optional[SpatialLayout] = None
 
     def __init__(self, channels: int, num_affine: int):
         super().__init__()
@@ -225,11 +278,23 @@ class AttnWeights(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n = x.shape[2] * x.shape[3]
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        s1 = xf.mean((2, 3), keepdim=True)                       # (B, C, 1, 1)
-        s2 = (xf * xf).mean((2, 3), keepdim=True)
-        var = ((s2 - s1 * s1) * (n / max(n - 1, 1))).clamp_min(0.0)
+        if self.spatial is None:
+            n = x.shape[2] * x.shape[3]
+            s1 = xf.mean((2, 3), keepdim=True)                   # (B, C, 1, 1)
+            s2 = (xf * xf).mean((2, 3), keepdim=True)
+            bessel = n / max(n - 1, 1)
+        else:
+            c = x.shape[1]
+            count = xf.new_full((x.shape[0], 1), x.shape[2] * x.shape[3])
+            sums = AllReduceSum.apply(torch.cat(
+                [xf.sum((2, 3)), (xf * xf).sum((2, 3)), count], 1),
+                self.spatial.space_group)
+            n = sums[:, 2 * c:][:, :, None, None]
+            s1 = sums[:, :c, None, None] / n
+            s2 = sums[:, c:2 * c, None, None] / n
+            bessel = n / (n - 1).clamp_min(1.0)
+        var = ((s2 - s1 * s1) * bessel).clamp_min(0.0)
         y = (s1 * torch.rsqrt(var + ATTN_VAR_EPS)).to(x.dtype)
         y = hsigmoid_v2(self.attention(y))
         return y.reshape(y.shape[0], y.shape[1])

@@ -5,16 +5,23 @@ Port of ``monocon_tpu/models/neck.py``. The JAX package's
 convolution ``nn.ConvTranspose2d(C, C, 2f, stride=f, padding=f//2,
 groups=C, bias=False)``; its weight is the flax kernel flipped back
 spatially (``utils/weights.py``).
+
+On a band of rows (``TPU.SPATIAL_SHARDS > 1``) an up-convolution of factor
+f takes one input row from each neighbouring band, and its output is cut
+to f times the band; the neck's 3x3 convolutions take their halos in
+``layers.Conv2d``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 
+from ..parallel.mesh import SpatialLayout
+from ..parallel.spatial import HaloExchange
 from .layers import ConvBnRelu
 
 # Strides of the aggregated levels relative to the first, which is level 2
@@ -32,9 +39,27 @@ def bilinear_upsample_kernel(factor: int) -> torch.Tensor:
     return w1d[:, None] * w1d[None, :]
 
 
-def depthwise_upsample(channels: int, factor: int) -> nn.ConvTranspose2d:
-    return nn.ConvTranspose2d(channels, channels, 2 * factor, stride=factor,
-                              padding=factor // 2, groups=channels, bias=False)
+class DepthwiseUpsample(nn.ConvTranspose2d):
+    """``ConvTranspose2d(C, C, 2f, stride f, padding f/2, groups C)``. Its
+    output row ``o`` reads input rows ``(o + f/2) // f - 1`` to
+    ``(o + f/2) // f``, so the rows ``[a f, b f)`` of a band ``[a, b)``
+    need input rows ``a - 1`` to ``b``: on a band of rows it takes one row
+    from each neighbour (zeros past the canvas), convolves, and keeps
+    output rows ``f`` to ``f + f (b - a)``."""
+
+    spatial: Optional[SpatialLayout] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spatial is None:
+            return super().forward(x)
+        f, h = self.stride[0], x.shape[2]
+        out = super().forward(HaloExchange.apply(x, 1, 1, self.spatial))
+        return out[:, :, f:f + f * h]
+
+
+def depthwise_upsample(channels: int, factor: int) -> DepthwiseUpsample:
+    return DepthwiseUpsample(channels, channels, 2 * factor, stride=factor,
+                             padding=factor // 2, groups=channels, bias=False)
 
 
 class IDAUp(nn.Module):

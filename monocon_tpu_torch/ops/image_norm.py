@@ -22,11 +22,14 @@ _INV_STD = 1.0 / np.asarray(IMAGENET_STD, np.float32)
 
 
 def normalize_if_raw(image: torch.Tensor,
-                     hw: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     hw: Optional[torch.Tensor] = None,
+                     row0: int = 0) -> torch.Tensor:
     """(B, H, W, 3) uint8 -> normalised float32; floats pass through.
 
     ``hw`` (B, 2) gives each sample's true (h, w) before padding; the
-    padded border becomes exactly 0.0, as the float transport's is."""
+    padded border becomes exactly 0.0, as the float transport's is.
+    ``image`` holds the canvas's rows from ``row0`` on (a band of the
+    image height split over ranks)."""
     if image.dtype != torch.uint8:
         return image
     mean = torch.from_numpy(_MEAN).to(image.device)
@@ -34,7 +37,8 @@ def normalize_if_raw(image: torch.Tensor,
     out = (image.to(torch.float32) - mean) * inv_std
     if hw is not None:
         hw = hw.to(image.device)
-        h_in = torch.arange(image.shape[1], device=image.device) < hw[:, 0, None]
+        rows = torch.arange(row0, row0 + image.shape[1], device=image.device)
+        h_in = rows < hw[:, 0, None]
         w_in = torch.arange(image.shape[2], device=image.device) < hw[:, 1, None]
         out = out * (h_in[:, :, None] & w_in[:, None, :])[..., None]
     return out

@@ -19,7 +19,10 @@ group; otherwise ``TPU.NUM_DEVICES`` (-1: every visible GPU; on the CPU,
 the count asked for, -1 meaning one) clamped to divide ``DATA.BATCH_SIZE``
 gives the processes to spawn, one meaning this process alone, as before.
 ``TPU.MULTIHOST`` asks for several nodes, which only torchrun's
-environment can describe.
+environment can describe. With ``TPU.SPATIAL_SHARDS = S > 1`` the count is
+``D x S``: ``D`` data shards, the largest count at most the devices over
+``S`` that divides the batch, as the JAX engine sizes its mesh; fewer
+devices than ``S`` raise.
 """
 
 from __future__ import annotations
@@ -102,12 +105,21 @@ def spawn_ranks(world: int, fn: Callable, *args: Any) -> None:
 def num_processes(cfg, device: torch.device) -> int:
     """The processes that ``cfg`` asks for on this node: ``TPU.NUM_DEVICES``
     (-1 or 0: every visible GPU, or on the CPU one; at most the visible
-    GPUs), clamped to the largest count that divides ``DATA.BATCH_SIZE``."""
+    GPUs) over ``TPU.SPATIAL_SHARDS`` bands, the data shards clamped to the
+    largest count that divides ``DATA.BATCH_SIZE``, times the bands."""
     asked = int(cfg.TPU.NUM_DEVICES)
+    spatial = max(1, int(cfg.TPU.SPATIAL_SHARDS))
     if device.type == "cuda":
         visible = torch.cuda.device_count()
         asked = visible if asked <= 0 else min(asked, visible)
-    return data_shards(max(asked, 1), int(cfg.DATA.BATCH_SIZE))
+    asked = max(asked, 1)
+    if asked < spatial:
+        raise ValueError(
+            f"TPU.SPATIAL_SHARDS={spatial} needs {spatial} processes, one "
+            f"a device; {asked} {device.type} device(s) are "
+            + ("visible" if device.type == "cuda" else
+               "asked for (set TPU.NUM_DEVICES)"))
+    return data_shards(asked // spatial, int(cfg.DATA.BATCH_SIZE)) * spatial
 
 
 def _rank_entry(device_type: str, entry: Callable, cfg,

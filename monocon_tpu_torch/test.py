@@ -17,7 +17,9 @@ config key, as in the train CLI.
 As the train CLI does, it runs one process per GPU under torchrun or when
 ``TPU.NUM_DEVICES`` asks for several (-1, the default, is every visible
 GPU): each rank evaluates its rows of every batch and rank 0 computes the
-AP dict and draws.
+AP dict and draws. With ``--set TPU.SPATIAL_SHARDS S`` the ranks form
+data shards of ``S`` bands of the canvas height each (a static
+``TPU.PAD_HW``), as in the train CLI.
 """
 
 from __future__ import annotations

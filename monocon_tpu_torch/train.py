@@ -24,6 +24,13 @@ starts one process per GPU, or a launcher does, on one node or several:
 node runs on ``cuda:r``, whatever --gpu_id says. On the CPU,
 ``--device cpu --set TPU.NUM_DEVICES 2`` runs two gloo processes.
 
+The image height split over ranks: ``--set TPU.SPATIAL_SHARDS S`` (and a
+static ``TPU.PAD_HW``) makes the processes ``D`` data shards of ``S``
+bands each, rank ``r`` holding band ``r % S`` of shard ``r // S``; e.g.
+``--device cpu --set TPU.NUM_DEVICES 4 --set TPU.SPATIAL_SHARDS 2`` runs
+2 x 2 gloo processes, and ``torchrun --nproc_per_node 8`` with
+``SPATIAL_SHARDS 2`` runs 4 x 2 on eight GPUs.
+
 As the root ``train.py`` does: SEED -1 draws a random seed (rank 0's, for
 every rank), and an existing complete checkpoint under OUTPUT_DIR is
 resumed. TF32 is off, so that the card computes in float32 as the CPU

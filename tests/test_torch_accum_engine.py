@@ -118,11 +118,12 @@ def test_engine_accumulates_as_jax(jax_run, tree, tmp_path, monkeypatch):
     ours = []
     real_step = engine_module.train_step
 
-    def recording(model, optimizer, solver, batch):
+    def recording(model, optimizer, solver, batch, layout):
+        assert layout is None      # one process, no bands
         step = jax_steps[len(ours)]
         before = state_dict_from_jax(step["before"])
         model.load_state_dict(before)
-        losses = real_step(model, optimizer, solver, batch)
+        losses = real_step(model, optimizer, solver, batch, layout)
         got, want = model.state_dict(), state_dict_from_jax(step["after"])
         for key, value in want.items():
             if "running_" in key:

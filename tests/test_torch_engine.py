@@ -162,11 +162,12 @@ def test_engine_matches_jax_step_by_step(jax_run, tree, tmp_path,
     steps = []
     real_step = engine_module.train_step
 
-    def recording(model, optimizer, scheduler, batch):
+    def recording(model, optimizer, scheduler, batch, layout):
+        assert layout is None      # one process, no bands
         i = len(steps)
         before = state_dict_from_jax(jax_steps[i][4])
         model.load_state_dict(before)
-        losses = real_step(model, optimizer, scheduler, batch)
+        losses = real_step(model, optimizer, scheduler, batch, layout)
         steps.append(({k: float(v) for k, v in losses.items()},
                       engine.current_lr, int(batch["img"].shape[0])))
         want = state_dict_from_jax(afters[i])

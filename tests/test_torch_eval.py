@@ -3,6 +3,7 @@ evaluator (C++ matcher and rotated IoU), the conversion to KITTI
 annotations, the ``.pth`` import, the engine as a whole on one checkpoint
 and tree, and the ``monocon_tpu_torch.test`` CLI."""
 
+import json
 import os
 import subprocess
 import sys
@@ -303,15 +304,74 @@ def test_config_files_load_as_in_jax(name):
     assert load_cfg(path).to_plain_dict() == jax_load_cfg(path).to_plain_dict()
 
 
-@pytest.mark.parametrize("setting, item", [
-    ({"TPU": {"SPATIAL_SHARDS": 2}}, "item 22"),
-], ids=["spatial"])
-def test_engine_refuses_what_the_port_does_not_run(setting, item):
+@pytest.mark.parametrize("setting, match", [
+    ({"TPU": {"SPATIAL_SHARDS": 8}}, "numerically safe"),
+    ({"TPU": {"SPATIAL_SHARDS": 2, "PAD_HW": None}}, "static TPU.PAD_HW"),
+    ({"TPU": {"SPATIAL_SHARDS": 5}}, "does not divide"),
+    ({"TPU": {"SPATIAL_SHARDS": 2}}, "multiple of 2 ranks"),
+], ids=["envelope", "no-canvas", "not-dividing", "one-process"])
+def test_engine_rejects_unsafe_spatial_config(setting, match, tmp_path):
+    """The port's counterpart of the JAX package's
+    ``test_engine_rejects_unsafe_spatial_config``: a shard count above the
+    envelope (6 at 384 rows), a canvas that is not static, a count that
+    does not divide the canvas, and (the port's own) a process that holds
+    no group of bands; each raises before the data is read."""
     cfg = get_default_cfg()
+    cfg.DATA.ROOT = str(tmp_path / "absent")   # never reached
     cfg.merge_from_dict(setting)
     for is_test in (True, False):
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=match):
             MonoConEngine(cfg, is_test=is_test, device="cpu")
+
+
+def test_pod_config_trains_over_two_by_two_ranks(tmp_path):
+    """``configs/kitti_v5e_pod.yaml`` (bfloat16, two bands, accumulation
+    2) with MULTIHOST off and a 128x160 canvas, through the train CLI over
+    2 x 2 gloo ranks: two loader steps of a global batch of 4 make one
+    optimizer step, every logged loss is finite, the evaluation over the
+    ranks gives 84 finite AP keys, and the exported config keeps the
+    file's settings."""
+    from monocon_tpu_torch.config import load_cfg as port_load_cfg
+    from monocon_tpu_torch.data.synthetic import generate_kitti_dataset
+
+    tree, out, stubs = tmp_path / "kitti", tmp_path / "run", tmp_path / "stubs"
+    generate_kitti_dataset(str(tree), num_train=8, num_val=1,
+                           image_hw=(128, 160), seed=9)
+    stubs.mkdir()
+    # torch.utils.tensorboard imports TensorFlow where it is installed.
+    (stubs / "tensorflow.py").write_text("raise ImportError\n")
+    settings = {"TPU.MULTIHOST": False, "TPU.NUM_DEVICES": 4,
+                "TPU.PAD_HW": [128, 160], "DATA.CROP_HW": [96, 128],
+                "DATA.BATCH_SIZE": 4, "DATA.NUM_WORKERS": 1,
+                "PERIOD.LOG_PERIOD": 1, "PERIOD.EVAL_PERIOD": 1,
+                "SOLVER.OPTIM.NUM_EPOCHS": 1}
+    cmd = [sys.executable, "-m", "monocon_tpu_torch.train", "--device",
+           "cpu", "--config_file", str(ROOT / "configs" /
+                                       "kitti_v5e_pod.yaml"),
+           "--data_root", str(tree), "--output_dir", str(out)]
+    for key, value in settings.items():
+        cmd += ["--set", key, str(value)]
+    env = dict(os.environ, PYTHONPATH=f"{stubs}{os.pathsep}{ROOT}",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "(2 data x 2 space)" in proc.stdout
+    state = torch.load(out / "checkpoints" / "epoch_001_final" / "state.pth",
+                       weights_only=False)
+    assert state["state_dict"]["scheduler"]["count"] == 1
+    rows = [json.loads(line) for line in
+            (out / "tf_logs" / "metrics.jsonl").read_text().splitlines()]
+    losses = [r for r in rows if r["tag"] == "loss"]
+    assert len(losses) == 2 and all(
+        np.isfinite(v) for r in losses for k, v in r.items()
+        if k not in ("tag", "step"))
+    (ap,) = [r for r in rows if r["tag"] == "eval"]
+    assert len(ap) == 86 and all(np.isfinite(v) for v in ap.values()
+                                 if not isinstance(v, str))
+    saved = port_load_cfg(str(out / "config.yaml"))
+    assert (saved.TPU.SPATIAL_SHARDS, saved.TPU.GRAD_ACCUM_STEPS,
+            saved.TPU.COMPUTE_DTYPE) == (2, 2, "bfloat16")
 
 
 @pytest.mark.parametrize("setting", [

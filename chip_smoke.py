@@ -91,7 +91,8 @@ result line:
    the count of run D, ``launches_by_path`` that of each path; ``ms``,
    ``plain_ms``, ``bound_ms`` and ``per_call`` are those of run D's
    batch (96x312), ``per_call_train_step`` those of the isolated step
-   (96x320);
+   (96x320), ``per_call_overfit`` those of phase 14's batch (48x160);
+   ``max_abs_err`` is the largest of every comparison;
 11. parallel: a. a process group of one rank through NCCL (torchrun's
    environment set in this process): the DLA-34 float32 step at B=8,
    384x1280, under ``data_parallel`` (DistributedDataParallel) against
@@ -121,9 +122,20 @@ result line:
    banded eval forward + decode against the same model's forward + decode
    of the whole images: head maps within 1e-3, top-30 equal up to ties;
    ms/step and peak memory per rank beside the plain step's. The splat
-   kernel launches twice per step on each rank.
+   kernel launches twice per step on each rank;
+14. overfit: the JAX package's overfit check
+   (``python -m monocon_tpu_torch.checks.overfit``: 4 synthetic images at
+   192x640, one batch of 4 on the card, DLA-34 float32, the one-cycle
+   AdamW at LR 5e-4) at ``OVERFIT_STEPS`` steps with the train CLI's CUDA
+   settings: its rule must pass (an AP entry above 0 and the last
+   step's center-heatmap loss under 0.1), and the splat kernel must launch
+   twice per step. Before the counted run, the kernel is held against its
+   plain version (within ``SPLAT_TOL``) and timed on the check's batch:
+   its two calls at the 48x160 map with the tree's labels. Prints the
+   first and last step's losses, the nonzero AP entries, ms/step and the
+   wall.
 
-The kernels line is printed after phase 13.
+The kernels line is printed after phase 14.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Needs a CUDA device;
@@ -217,6 +229,10 @@ print("SPLAT_LAUNCHES", splat.launch_count)
 # the two-rank run's time limit.
 PARALLEL_STEPS = 4
 TWO_RANK_TIMEOUT_S = 300
+# The overfit phase's steps: the fewest of 250, 500, 1000, 2000 and 4000
+# at which the check passed on an H100 with the center-heatmap loss at most
+# half the rule's 0.1 (PERF.md section 6).
+OVERFIT_STEPS = 500
 # The bench phase: the root bench.py's keys, and the time limit of a run.
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "torch_fps",
               "device_ms_per_step", "device_fps", "mfu_pct", "batch",
@@ -2263,6 +2279,54 @@ def phase_spatial(tmp: Path, plain: dict) -> int:
     return launches
 
 
+def phase_overfit(tmp: Path) -> "tuple[int, list[dict]]":
+    """Phase 14: the overfit check at ``OVERFIT_STEPS`` steps on the card.
+    Returns the splat kernel's launches and the two timed splat calls of
+    the overfit's batch."""
+    from monocon_tpu_torch.checks.overfit import (IMAGE_HW, overfit_batch,
+                                                  run_overfit, write_tree)
+    from monocon_tpu_torch.config import get_default_cfg
+    from monocon_tpu_torch.engine.train_step import FEAT_STRIDE
+    from monocon_tpu_torch.ops import splat
+    from monocon_tpu_torch.train import configure_backends
+
+    root = tmp / "overfit"
+    write_tree(str(root))
+    configure_backends(get_default_cfg(), deterministic=False)
+    # The kernel on the overfit's own inputs (the tree's labels at the
+    # check's canvas), before the counted run.
+    _, _, batch = overfit_batch(str(root), DEVICE)
+    feat_hw = (IMAGE_HW[0] // FEAT_STRIDE, IMAGE_HW[1] // FEAT_STRIDE)
+    _, calls = capture_splat_inputs(batch, feat_hw, IMAGE_HW)
+    shapes = time_splat_calls(calls, "overfit")
+    del batch, calls
+    t0 = time.perf_counter()
+    splat.launch_count = 0
+    result = run_overfit(str(root), steps=OVERFIT_STEPS, device=DEVICE)
+    launches = splat.launch_count
+    wall = time.perf_counter() - t0
+    first, last = result["log"][0], result["final"]
+    log(f"[overfit] step 0 losses {json.dumps(first)}")
+    log(f"[overfit] step {OVERFIT_STEPS - 1} losses {json.dumps(last)}")
+    log(f"[overfit] {len(result['nonzero_ap'])} nonzero AP entries "
+        f"{json.dumps(result['nonzero_ap'])}; detections per image "
+        f"{result['detections']}")
+    log(f"[overfit] {OVERFIT_STEPS} steps of B=4 at 192x640, float32: "
+        f"{result['ms_per_step']:.3f} ms/step, {wall:.3f} s wall with the "
+        f"loader and the evaluation; splat launches {launches}; rule "
+        f"{'PASS' if result['passed'] else 'FAIL'}")
+    if launches != 2 * OVERFIT_STEPS:
+        raise AssertionError(f"overfit: the splat kernel launched {launches} "
+                             f"times in {OVERFIT_STEPS} steps, expected 2 "
+                             "per step")
+    if not result["passed"]:
+        raise AssertionError(
+            f"overfit: the rule fails: center-heatmap loss "
+            f"{last['loss_center_heatmap']}, "
+            f"{len(result['nonzero_ap'])} nonzero AP entries")
+    return launches, shapes
+
+
 def run_bench(env: dict) -> dict:
     """``python -m monocon_tpu_torch.bench`` with ``env`` added: its JSON
     line, printed, and checked."""
@@ -2358,10 +2422,12 @@ def main() -> int:
             Path(tmp) / "kitti_train", Path(tmp) / "run_torchrun")
         phase_bench(Path(tmp))
         by_path["spatial"] = phase_spatial(Path(tmp), plain)
+        by_path["overfit"], overfit_calls = phase_overfit(Path(tmp))
     # The numbers of the path whose launches the line reports: run D's.
     entry = splat_entry(loop_calls, max(
-        worst, *(s["max_abs_err"] for s in loop_calls)))
+        worst, *(s["max_abs_err"] for s in loop_calls + overfit_calls)))
     entry["per_call_train_step"] = step_calls
+    entry["per_call_overfit"] = overfit_calls
     entry["launches"] = by_path["train_loop_D"]
     entry["launches_by_path"] = by_path
     print(card, flush=True)

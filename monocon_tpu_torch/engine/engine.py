@@ -7,7 +7,8 @@ included, with the interrupted run's data seed), an evaluation every
 EVAL_PERIOD epochs followed by a checkpoint, a checkpoint every
 CKPT_PERIOD_STEPS steps, console logging every LOG_PERIOD steps with
 progress bar, LR and 100-step mean, ``loss/*`` and ``eval/*`` scalars in
-``tf_logs/metrics.jsonl``, and the config exported at the start of
+``tf_logs/metrics.jsonl`` (and ``time/*`` per epoch: its seconds, steps,
+ms/step and images/s), and the config exported at the start of
 training.
 
 Training runs ``train_step`` (targets with the CUDA splat kernel on the
@@ -223,6 +224,8 @@ class MonoConEngine:
         # of steps the host has not read yet (_materialize_losses).
         self.entire_losses: List[Any] = []
         self.epoch_times: List[float] = []
+        # Steps and images the last train_one_epoch trained.
+        self.epoch_steps = self.epoch_images = 0
 
         self.train_dataset = self.train_loader = None
         if not is_test:
@@ -413,6 +416,7 @@ class MonoConEngine:
         """Train the current epoch (its rest, after a mid-epoch resume);
         return its mean loss."""
         self.train_loader.set_epoch(self.epochs)
+        self.epoch_steps = self.epoch_images = 0
         steps = len(self.train_loader)
         skip_steps = self._resume_step_in_epoch
         self._resume_step_in_epoch = 0
@@ -433,6 +437,9 @@ class MonoConEngine:
                                     self.solver, use_on_current_stream(batch),
                                     self.layout)
                 self.entire_losses.append(losses["total_loss"])
+                self.epoch_steps += 1
+                self.epoch_images += batch.get("num_valid",
+                                               len(batch["calib"]))
                 if self.global_iters % self.log_period == 0:
                     self._log_step(losses, batch_idx + 1, steps)
                 if (self.ckpt_period_steps > 0
@@ -527,6 +534,12 @@ class MonoConEngine:
                     print(f"\n- Average Loss: {avg_loss:.3f}")
                     print(f"- Epoch Time: {elapsed:.1f}s | ETA "
                           f"{remaining / 3600:.2f}h")
+                if self.writer is not None and self.epoch_steps:
+                    self.writer.add_scalars({
+                        "epoch_s": elapsed, "steps": self.epoch_steps,
+                        "ms_per_step": 1e3 * elapsed / self.epoch_steps,
+                        "images_per_s": self.epoch_images / elapsed},
+                        tag="time", step=self.epochs)
                 if self.val_period > 0 and self.epochs % self.val_period == 0:
                     ap = self.evaluate()
                     if self.writer is not None:

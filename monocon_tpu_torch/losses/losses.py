@@ -114,11 +114,14 @@ def _dim_aware_rule(nums: torch.Tensor, dens: torch.Tensor) -> torch.Tensor:
 def dim_aware_l1_term(pred: torch.Tensor, target: torch.Tensor,
                       dims: torch.Tensor, mask: torch.Tensor) -> LossTerm:
     """|d - d*| / d (``dims`` detached), rescaled by a detached factor so
-    that its mean is the plain L1 mean. The division is unguarded, as in
-    the reference."""
+    that its mean is the plain L1 mean. The objects' rows are divided
+    unguarded, as in the reference; the padding rows (``mask`` 0) are not
+    divided at all. The reference gathers the objects' rows alone; here
+    a padding row gathers the map at index 0, where a bfloat16 prediction
+    can be exactly 0, and 0 / 0 would turn the masked sum into NaN."""
     diff = torch.abs(pred - target)
-    loss = diff / dims.detach()
     mask = torch.broadcast_to(mask, diff.shape).to(diff.dtype)
+    loss = diff / torch.where(mask > 0, dims.detach(), torch.ones_like(diff))
     loss_sum = (loss * mask).sum()
     return LossTerm(loss_sum.reshape(1),
                     _sums(diff * mask, loss_sum, mask).detach(),

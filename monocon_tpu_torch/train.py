@@ -136,6 +136,13 @@ def run_training(cfg, device: torch.device, deterministic: bool,
     if not dist.is_initialized() or dist.get_rank() == 0:
         tprint(f"Using random seed {cfg.SEED}.")
 
+    configure_backends(cfg, deterministic)
+    MonoConEngine(cfg, device=device).train(resume_from=resume_from)
+
+
+def configure_backends(cfg, deterministic: bool) -> None:
+    """The CUDA settings of a training run: TF32 off; deterministic
+    algorithms, or cuDNN's autotuning as ``cfg.USE_BENCHMARK`` says."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if deterministic:
@@ -145,8 +152,6 @@ def run_training(cfg, device: torch.device, deterministic: bool,
         torch.backends.cudnn.benchmark = False
     else:
         torch.backends.cudnn.benchmark = bool(cfg.USE_BENCHMARK)
-
-    MonoConEngine(cfg, device=device).train(resume_from=resume_from)
 
 
 if __name__ == "__main__":

@@ -79,7 +79,10 @@ def test_chip_smoke_fails_without_a_card(alone, tmp_path):
               "out", "--data_root", "."]),
     ("test_raw", ["--data_dir", ".", "--calib_file", "calib.txt",
                   "--checkpoint_file", "model.pth", "--save_dir", "out"]),
-], ids=["test", "train", "test_visualize", "test_raw"])
+    ("checks.overfit", ["--steps", "1"]),
+    ("checks.generalization", ["--epochs", "1", "--out", "out"]),
+], ids=["test", "train", "test_visualize", "test_raw", "overfit",
+        "generalization"])
 def test_cli_needs_a_card_unless_told(cli, args, tmp_path):
     """With no ``--device`` and no CUDA device the CLI fails before it
     reads or writes anything."""

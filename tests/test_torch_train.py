@@ -93,6 +93,40 @@ def test_masked_losses_match_jax_f64(rng):
                                    err_msg=key, **F64_TOL)
 
 
+def test_dim_loss_survives_an_exact_zero_at_padding_rows(rng):
+    """The padding rows of the (B, O) table gather the dimension map at
+    index 0, where a bfloat16 prediction can be exactly 0 (bfloat16
+    training on an H100 went NaN that way, ROADMAP.md F3). The port
+    divides the objects' rows alone, as the reference does: with 0 at
+    every padding row the loss and its gradient are those with any other
+    value there, and equal the JAX package's on the latter; the JAX
+    formula, which divides every row, gives NaN."""
+    from monocon_tpu.losses import dim_aware_l1_loss
+    from monocon_tpu_torch.losses.losses import dim_aware_l1_term
+
+    mask = np.zeros((2, 5, 1))
+    mask[:, :2] = 1.0
+    target = rng.uniform(1.0, 4.0, (2, 5, 3)) * mask
+    pred = rng.uniform(0.5, 4.0, (2, 5, 3))
+    zeroed = pred * mask
+    results = []
+    for p in (pred, zeroed):
+        t = torch.tensor(p, requires_grad=True)
+        loss = dim_aware_l1_term(t, torch.tensor(target), t,
+                                 torch.tensor(mask)).value()
+        loss.backward()
+        assert torch.isfinite(loss) and torch.isfinite(t.grad).all()
+        results.append((float(loss.detach()), t.grad.numpy() * mask))
+    assert results[0][0] == results[1][0]
+    np.testing.assert_array_equal(results[0][1], results[1][1])
+    with jax.enable_x64(True):
+        theirs = [float(dim_aware_l1_loss(jnp.asarray(p), jnp.asarray(target),
+                                          jnp.asarray(p), jnp.asarray(mask)))
+                  for p in (pred, zeroed)]
+    np.testing.assert_allclose(results[0][0], theirs[0], **F64_TOL)
+    assert np.isnan(theirs[1])
+
+
 def optax_parity_over_20_steps(rng, **settings):
     """20 steps of the same gradients (some above the clip norm of 35)
     through the JAX package's optax chain and through the port's AdamW and

@@ -133,9 +133,20 @@ result line:
    plain version (within ``SPLAT_TOL``) and timed on the check's batch:
    its two calls at the 48x160 map with the tree's labels. Prints the
    first and last step's losses, the nonzero AP entries, ms/step and the
-   wall.
+   wall;
+15. eval scale: ``python -m monocon_tpu_torch.checks.eval_scale`` (its
+   ``main``, in this process) at 3769 images, KITTI's val split, on the
+   card's host: synthetic annotations at KITTI's density, ``kitti_eval``
+   end to end with the C++ matcher, the cProfile top 40 of a second run,
+   the stage table of ``eval_class`` (metric 3D, the least of 3 repeats)
+   and the AP's share of one ``EVAL_PERIOD`` of the shipped config (10
+   epochs of 3712 images at B=16) at phase 8's bf16 B=16 ms/step (cuDNN
+   autotuned, as the train CLI runs). The 63-key AP dict must equal,
+   float for float, the JAX package's on the same annotations (the
+   committed ``monocon_tpu_torch/checks/resources/eval_scale_jax_ap.json``).
+   A host phase: the splat kernel launches 0 times.
 
-The kernels line is printed after phase 14.
+The kernels line is printed after phase 15.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Needs a CUDA device;
@@ -233,6 +244,9 @@ TWO_RANK_TIMEOUT_S = 300
 # at which the check passed on an H100 with the center-heatmap loss at most
 # half the rule's 0.1 (PERF.md section 6).
 OVERFIT_STEPS = 500
+# The eval-scale phase: KITTI's val split, and the JAX AP dict's keys.
+EVAL_SCALE_IMAGES = 3769
+EVAL_SCALE_AP_KEYS = 63
 # The bench phase: the root bench.py's keys, and the time limit of a run.
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "torch_fps",
               "device_ms_per_step", "device_fps", "mfu_pct", "batch",
@@ -1543,10 +1557,11 @@ def timed_steps(num_layers: int, dtype, batch_size: int, seed: int,
     return ms, peak, launches
 
 
-def phase_bf16() -> int:
+def phase_bf16() -> "tuple[int, float]":
     """bfloat16 DLA-34: serving and the train step, card against CPU at
     64x160, then timed at 384x1280. Returns the splat launches of the
-    timed steps."""
+    timed steps and the B=16 ms/step with cuDNN autotuned (as the train
+    CLI runs the shipped config)."""
     import torch
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1581,14 +1596,15 @@ def phase_bf16() -> int:
         torch.backends.cudnn.benchmark = benchmark
         try:
             for batch_size in (TRAIN_BATCH, BIG_BATCH):
-                launches += timed_steps(
+                ms, _, count = timed_steps(
                     34, bf16, batch_size, SEED, "bf16 DLA-34 train",
-                    breakdown=batch_size == TRAIN_BATCH)[2]
+                    breakdown=batch_size == TRAIN_BATCH)
+                launches += count
             timed_steps(34, f32, TRAIN_BATCH, SEED, "float32 DLA-34 train",
                         breakdown=True)
         finally:
             torch.backends.cudnn.benchmark = False
-    return launches
+    return launches, ms
 
 
 def phase_dla102() -> int:
@@ -2327,6 +2343,40 @@ def phase_overfit(tmp: Path) -> "tuple[int, list[dict]]":
     return launches, shapes
 
 
+def phase_eval_scale(tmp: Path, train_ms_per_step: float) -> int:
+    """Phase 15: ``checks.eval_scale`` at ``EVAL_SCALE_IMAGES`` images on
+    the card's host, its AP dict against the JAX package's. Returns the
+    splat kernel's launches (0)."""
+    from monocon_tpu_torch.checks import eval_scale
+    from monocon_tpu_torch.ops import splat
+
+    out = tmp / "eval_scale.json"
+    splat.launch_count = 0
+    code = eval_scale.main(["--images", str(EVAL_SCALE_IMAGES),
+                            "--train-ms-per-step", repr(train_ms_per_step),
+                            "--profile", "--json", str(out)])
+    launches = splat.launch_count
+    record = json.loads(out.read_text())
+    log(f"[eval_scale] record {json.dumps(record)}")
+    if code != 0 or record["ap_equals_jax"] is not True:
+        raise AssertionError(f"eval_scale: exit {code}, the AP dict equal to "
+                             f"the JAX package's: {record['ap_equals_jax']}")
+    if record["ap_keys"] != EVAL_SCALE_AP_KEYS or launches:
+        raise AssertionError(f"eval_scale: {record['ap_keys']} AP keys, "
+                             f"{launches} splat launches")
+    period = record["eval_period"]
+    log(f"[eval_scale] {EVAL_SCALE_IMAGES} images on "
+        f"{record['device']['host']} (card {record['device']['card']}): "
+        f"kitti_eval {record['end_to_end_cpp_s']:.6f} s end to end, AP dict "
+        f"equal to the JAX package's ({record['ap_keys']} keys); stages "
+        f"(least of {record['stage_repeats']}) "
+        + ", ".join(f"{k} {v:.6f} s" for k, v in record["stages_3d"].items())
+        + f"; {period['eval_share']:.4%} of an EVAL_PERIOD "
+        f"({period['steps']} bf16 B={period['batch']} steps at "
+        f"{period['train_ms_per_step']:.3f} ms); splat launches {launches}")
+    return launches
+
+
 def run_bench(env: dict) -> dict:
     """``python -m monocon_tpu_torch.bench`` with ``env`` added: its JSON
     line, printed, and checked."""
@@ -2412,7 +2462,7 @@ def main() -> int:
         by_path.update(loop_launches)
         gc.collect()
         torch.cuda.empty_cache()
-        by_path["train_step_bf16"] = phase_bf16()
+        by_path["train_step_bf16"], bf16_b16_ms = phase_bf16()
         by_path["train_step_dla102"] = phase_dla102()
         by_path["config_file_run"] = phase_config_file(
             Path(tmp) / "kitti_train", Path(tmp) / "run_config")
@@ -2423,6 +2473,7 @@ def main() -> int:
         phase_bench(Path(tmp))
         by_path["spatial"] = phase_spatial(Path(tmp), plain)
         by_path["overfit"], overfit_calls = phase_overfit(Path(tmp))
+        by_path["eval_scale"] = phase_eval_scale(Path(tmp), bf16_b16_ms)
     # The numbers of the path whose launches the line reports: run D's.
     entry = splat_entry(loop_calls, max(
         worst, *(s["max_abs_err"] for s in loop_calls + overfit_calls)))

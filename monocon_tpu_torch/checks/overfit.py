@@ -24,7 +24,7 @@ import argparse
 import sys
 import tempfile
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -81,11 +81,14 @@ def run_overfit(root: str, steps: int = 4000, lr: float = 5e-4,
                 dtype: str = "float32",
                 device: "str | torch.device | None" = None,
                 image_hw: Tuple[int, int] = IMAGE_HW,
-                model: Optional[torch.nn.Module] = None) -> Dict[str, Any]:
+                model: Optional[torch.nn.Module] = None,
+                on_step: Optional[Callable[..., None]] = None
+                ) -> Dict[str, Any]:
     """Train ``steps`` steps on the first batch of the tree at ``root`` (see
     :func:`write_tree`), padded to ``image_hw``, then evaluate it. ``model``
     replaces the detector from seed 0 (its ``compute_dtype`` then rules,
-    not ``dtype``).
+    not ``dtype``). ``on_step(i, losses, solver)``, where given, is called
+    after each step (``overfit_breakdown.py`` reads the run through it).
 
     Returns ``log`` (the 11 losses of steps 0, 1000, 2000, ...), ``final``
     (those of the last step, taken before its update), ``nonzero_ap``
@@ -106,6 +109,8 @@ def run_overfit(root: str, steps: int = 4000, lr: float = 5e-4,
     start = time.perf_counter()
     for i in range(steps):
         losses = train_step(model, optimizer, solver, batch)
+        if on_step is not None:
+            on_step(i, losses, solver)
         if i % LOG_EVERY == 0:
             log.append({k: float(v) for k, v in losses.items()})
             print(f"step {i}: total={log[-1]['total_loss']:.3f}", flush=True)

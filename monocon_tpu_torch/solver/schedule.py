@@ -98,6 +98,9 @@ class Solver:
             p for group in optimizer.param_groups for p in group["params"]]
         self.count = 0          # optimizer steps taken
         self.mini_step = 0      # micro-steps in the current accumulation
+        # The global norm of the last clipped gradient, before the clip (a
+        # device scalar, read by diagnostics).
+        self.grad_norm: Optional[torch.Tensor] = None
         self.acc_grads = ([torch.zeros_like(p) for p in self.params]
                           if grad_accum > 1 else None)
 
@@ -135,7 +138,7 @@ class Solver:
                 g.copy_(acc)
                 acc.zero_()
         if self.clip_grad_norm is not None and self.clip_grad_norm > 0:
-            clip_by_global_norm_(grads, self.clip_grad_norm)
+            self.grad_norm = clip_by_global_norm_(grads, self.clip_grad_norm)
         lr, beta1 = self.hyperparams(self.count)
         for group in self.optimizer.param_groups:
             group["lr"] = lr

@@ -22,12 +22,16 @@ from monocon_tpu.data.synthetic import generate_kitti_dataset as jax_generate
 from monocon_tpu.data.transforms import Normalize as JaxNormalize
 from monocon_tpu.data.transforms import Pad as JaxPad
 from monocon_tpu.engine import create_train_state, make_train_step
+from monocon_tpu.losses import gaussian_focal_loss as jax_focal_loss
+from monocon_tpu.models import heads as jax_heads
 from monocon_tpu.models import create_detector_state
 from monocon_tpu.solver import build_optimizer as jax_build_optimizer
 from monocon_tpu_torch.checks.generalization import (run_generalization,
                                                      snapshot_medians)
 from monocon_tpu_torch.checks.overfit import (overfit_passed, run_overfit,
                                               write_tree)
+from monocon_tpu_torch.losses.losses import gaussian_focal_term
+from monocon_tpu_torch.models import heads
 from torch_port_helpers import F32_TOL, port_detector
 
 CANVAS = (64, 160)
@@ -297,3 +301,41 @@ def test_snapshot_median_is_numpys(snaps, final):
         values = [s[key] for s in snaps if key in s]
         values += [final[key]] if key in final else []
         assert medians[key] == float(np.median(values))
+
+
+def test_a_center_positive_under_the_clamp_gets_no_gradient():
+    """One way the overfit fails its rule at 4000 steps, in either dtype
+    (F3, ``ROADMAP.md`` section 3): both packages clamp the center
+    heatmap to ``[1e-4, 1 - 1e-4]`` after the sigmoid, and a clamp passes
+    no gradient outside its range. A positive whose logit falls under
+    logit(1e-4) adds ``-(1 - 1e-4)^2 ln(1e-4) / num_pos`` to the focal
+    loss and gets no gradient of its own to climb back: with the overfit
+    batch's 6 positives that is 1.53475, the last heatmap loss of the
+    runs that failed this way (``overfit_breakdown.py``, ``PERF.md``
+    section 6)."""
+    target = np.zeros((1, 4, 8, 3), np.float32)
+    live = [(0, 1, 0), (1, 2, 0), (2, 3, 1), (3, 4, 1), (0, 6, 2)]
+    dead = (2, 6, 2)
+    logits = np.full(target.shape, -12.0, np.float32)
+    for y, x, c in live:
+        target[0, y, x, c], logits[0, y, x, c] = 1.0, 12.0
+    target[(0, *dead)], logits[(0, *dead)] = 1.0, -12.0
+    logits[0, 1, 2, 0] = 0.0          # one live positive at p = 0.5
+
+    x = torch.from_numpy(logits).requires_grad_()
+    ours = gaussian_focal_term(
+        torch.clamp(torch.sigmoid(x), heads.HEAT_MIN, heads.HEAT_MAX),
+        torch.from_numpy(target)).value()
+    ours.backward()
+    theirs, grad = jax.value_and_grad(lambda v: jax_focal_loss(
+        jnp.clip(jax.nn.sigmoid(v), jax_heads.HEAT_MIN, jax_heads.HEAT_MAX),
+        jnp.asarray(target)))(jnp.asarray(logits))
+
+    floor = -(1 - 1e-4) ** 2 * np.log(1e-4)
+    want = (floor - 0.25 * np.log(0.5)) / 6
+    assert float(ours) == pytest.approx(want, rel=1e-5)
+    assert float(theirs) == pytest.approx(want, rel=1e-5)
+    assert floor / 6 == pytest.approx(1.53475, abs=1e-5)
+    for g in (x.grad.numpy(), np.asarray(grad)):
+        assert g[(0, *dead)] == 0.0
+        assert g[0, 1, 2, 0] < 0       # the live one at 0.5 climbs

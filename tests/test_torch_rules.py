@@ -1,7 +1,7 @@
 """Rules of the port that hold whatever the numbers: it imports nothing of
-JAX or of the JAX package, nor OpenCV, PIL or PyYAML; its entry points
-never choose the CPU on their own; and ``chip_smoke.py`` refuses to run
-without a CUDA device."""
+JAX, of the JAX package or of its ``scripts/``, nor OpenCV, PIL or
+PyYAML; its entry points never choose the CPU on their own; and
+``chip_smoke.py`` refuses to run without a CUDA device."""
 
 import ast
 import json
@@ -18,13 +18,14 @@ import torch_port_helpers  # noqa: F401 -- caps torch's threads
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "monocon_tpu",
-             "cv2", "PIL", "yaml")
+             "scripts", "cv2", "PIL", "yaml")
 
 
 def _port_sources():
     return sorted((ROOT / "monocon_tpu_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "splat_breakdown.py",
-        ROOT / "loop_breakdown.py", ROOT / "spatial_breakdown.py"]
+        ROOT / "loop_breakdown.py", ROOT / "spatial_breakdown.py",
+        ROOT / "overfit_breakdown.py"]
 
 
 def _imported_modules(path):

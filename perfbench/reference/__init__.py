@@ -1,0 +1,3 @@
+"""The plain reference the benchmark holds the program to: plain PyTorch
+and numpy, importing nothing of the program, of JAX or of the JAX
+package."""

@@ -10,6 +10,13 @@ With the image height split over ranks (a :class:`SpatialLayout`), each
 rank holds one band of its data shard's images and the whole-height head
 maps come back on every rank of the space group: each generates the whole
 targets (its two splat launches) and the same losses from them.
+
+Under a recording ``torch.profiler`` the step is the span ``monocon.step``
+with five children, in order: ``.targets``, ``.forward`` (the image's
+normalisation and the detector), ``.losses`` (with their all-reduce),
+``.backward`` (``zero_grad`` and ``backward()``) and ``.solver``
+(``utils/profiling.py::span``; with no profiler recording, each costs a
+flag read and a shared no-op context).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from ..ops.targets import generate_targets
 from ..parallel.mesh import SpatialLayout
 from ..parallel.spatial import spatial_scope
 from ..solver.schedule import Solver
+from ..utils.profiling import span
 
 FEAT_STRIDE = 4
 
@@ -177,34 +185,40 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ``layout`` splits the height: ``batch['img']`` holds this rank's band
     of the canvas (``layout.band``), the rest is its data shard's whole
     rows, and the model is wrapped over every rank of the layout."""
-    group = None
-    if isinstance(model, DistributedDataParallel):
-        group = model.process_group
-        if dist.get_world_size(group) == 1:
-            group = None
-    loss_group, scale = group, None
-    row0, pad_h = 0, batch["img"].shape[1]
-    if layout is not None and layout.spatial > 1:
-        if group is None:
-            raise ValueError("a step on bands of rows needs the model "
-                             "wrapped over every rank (data_parallel)")
-        loss_group, scale = layout.data_group, dist.get_world_size(group)
-        row0, pad_h = layout.band[0], layout.pad_h
-    valid = batch.get("valid")
-    img = normalize_if_raw(batch["img"], batch.get("img_hw"), row0)
-    pad_hw = (pad_h, img.shape[2])
-    feat_hw = (pad_hw[0] // FEAT_STRIDE, pad_hw[1] // FEAT_STRIDE)
-    with torch.no_grad():
-        target = generate_targets(batch["label"], feat_hw, pad_hw)
+    with span("monocon.step"):
+        group = None
+        if isinstance(model, DistributedDataParallel):
+            group = model.process_group
+            if dist.get_world_size(group) == 1:
+                group = None
+        loss_group, scale = group, None
+        row0, pad_h = 0, batch["img"].shape[1]
+        if layout is not None and layout.spatial > 1:
+            if group is None:
+                raise ValueError("a step on bands of rows needs the model "
+                                 "wrapped over every rank (data_parallel)")
+            loss_group, scale = layout.data_group, dist.get_world_size(group)
+            row0, pad_h = layout.band[0], layout.pad_h
+        valid = batch.get("valid")
+        pad_hw = (pad_h, batch["img"].shape[2])
+        feat_hw = (pad_hw[0] // FEAT_STRIDE, pad_hw[1] // FEAT_STRIDE)
+        with span("monocon.step.targets"), torch.no_grad():
+            target = generate_targets(batch["label"], feat_hw, pad_hw)
 
-    model.train()
-    with spatial_scope(model, layout), batch_stats_scope(model, group,
-                                                         valid):
-        pred = model(img)
-    losses, objective = reduce_loss_terms(
-        loss_terms(pred, target, sample_valid=valid), loss_group, scale)
-    optimizer.zero_grad(set_to_none=True)
-    objective.backward()
-    solver.step()
-    losses["total_loss"] = sum(losses.values())
-    return {k: v.detach() for k, v in losses.items()}
+        with span("monocon.step.forward"):
+            img = normalize_if_raw(batch["img"], batch.get("img_hw"), row0)
+            model.train()
+            with spatial_scope(model, layout), batch_stats_scope(
+                    model, group, valid):
+                pred = model(img)
+        with span("monocon.step.losses"):
+            losses, objective = reduce_loss_terms(
+                loss_terms(pred, target, sample_valid=valid), loss_group,
+                scale)
+        with span("monocon.step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            objective.backward()
+        with span("monocon.step.solver"):
+            solver.step()
+        losses["total_loss"] = sum(losses.values())
+        return {k: v.detach() for k, v in losses.items()}

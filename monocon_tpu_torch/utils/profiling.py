@@ -4,7 +4,8 @@ Port of ``monocon_tpu/utils/profiling.py``: the reference's timer
 decorator (``utils/decorators.py``), a timer that waits for the devices
 before it reads the clock, and trace capture with ``torch.profiler`` in
 the place of ``jax.profiler``. :func:`device_op_seconds` reads a trace
-back: the summed duration of its GPU kernels.
+back: the summed duration of its GPU kernels. :func:`span` names a stretch
+of the program in whatever trace is being recorded.
 """
 
 from __future__ import annotations
@@ -19,12 +20,16 @@ import time
 from typing import Any, Callable, Tuple
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 # The chrome-trace category of a GPU kernel as CUPTI records it. Copies
 # ("gpu_memcpy"), fills ("gpu_memset") and the host's "cuda_runtime" calls
 # have categories of their own and are not counted.
 KERNEL_CATEGORY = "kernel"
 TRACE_SUFFIX = ".pt.trace.json.gz"
+# What :func:`span` returns while no profiler records: one shared context
+# that does nothing.
+_NO_SPAN = contextlib.nullcontext()
 
 
 def timed(fn: Callable) -> Callable:
@@ -74,6 +79,17 @@ def sync_timer(fn: Callable, *args, iters: int = 10, warmup: int = 2,
         out = fn(*args, **kwargs)
     block_on(out)
     return (time.perf_counter() - t0) / iters
+
+
+def span(name: str):
+    """A context that marks a stretch of the program as ``name`` in the
+    trace of a recording ``torch.profiler``, on the profiler's own clock
+    (a ``record_function`` range; :func:`device_trace`'s trace shows it
+    over the kernels). While no profiler records it reads the profiler's
+    flag once and enters nothing."""
+    if autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager

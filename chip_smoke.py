@@ -16,7 +16,10 @@ result line:
    W and H, N above one cull round, N above 48 KB of shared list, one
    channel, N=0, radius 0, an all-invalid element), and an N past the
    shared list must be refused; then every target of one train batch,
-   card against CPU;
+   card against CPU; then the batch-norm kernels (``ops/batch_norm.py``)
+   and ``F.batch_norm`` in float32 at three of the float32 step's shapes
+   and two ragged ones, both against ``F.batch_norm`` in float64, and the
+   kernels' forward and backward timed against their bytes bound;
 4. serve: DLA-34 (random weights from a seed) at 384x1280, float32, eval
    forward + 3D decode, one image on the card against the CPU, then
    frames/s at batch 8;
@@ -62,7 +65,9 @@ result line:
    CPU's own bfloat16-to-float32 gap (the bound of
    ``tests/test_torch_bf16.py``), then serve frames/s at batch 8 and train
    ms/step and peak memory at batch 8 and 16, 384x1280, uint8 images,
-   with cuDNN's heuristics and then autotuned, float32 beside it, and a
+   with cuDNN's heuristics and then autotuned, float32 beside it (autotuned:
+   in contiguous NCHW, the batch-norm kernels launched 4 times a step for
+   each train-mode BatchNorm2d, and none in channels_last), and a
    torch.profiler breakdown of one step of each at batch 8;
    DLA-102 at 64x160 card against CPU in float32 and bfloat16, then serve
    frames/s and train ms/step in both at 384x1280, batch 8 (halved if the
@@ -92,7 +97,10 @@ result line:
    ``plain_ms``, ``bound_ms`` and ``per_call`` are those of run D's
    batch (96x312), ``per_call_train_step`` those of the isolated step
    (96x320), ``per_call_overfit`` those of phase 14's batch (48x160);
-   ``max_abs_err`` is the largest of every comparison;
+   ``max_abs_err`` is the largest of every comparison. The batch-norm
+   kernels' entry: ``per_call`` the checked shapes, ``ms`` and
+   ``bound_ms`` per step of the autotuned float32 step, ``launches`` its
+   count; every other path of the process must launch none;
 11. parallel: a. a process group of one rank through NCCL (torchrun's
    environment set in this process): the DLA-34 float32 step at B=8,
    384x1280, under ``data_parallel`` (DistributedDataParallel) against
@@ -608,6 +616,142 @@ def phase_kernel(rng) -> "tuple[list[dict], float]":
     return shapes, worst
 
 
+# (B, C, H, W, affine) of the batch-norm check: DLA-34's stem and head
+# maps and its deepest level at B=8, then ragged rows, one image.
+BN_SHAPES = [(8, 16, 384, 1248, True), (8, 64, 96, 312, False),
+             (8, 512, 12, 39, True), (2, 3, 5, 7, True),
+             (1, 32, 17, 33, False)]
+# Bytes an element of a batch norm's input moves at least: x read and y
+# written by the forward; grad and x read and dx written by the backward.
+BN_FORWARD_BYTES, BN_BACKWARD_BYTES = 8, 12
+BN_KERNELS = ("_stats", "_normalize", "_grad_sums", "_grad_input")
+BN_REPS = 20
+
+
+def bn_bound_ms(forward_elements: int, backward_elements: int) -> float:
+    return (BN_FORWARD_BYTES * forward_elements + BN_BACKWARD_BYTES
+            * backward_elements) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_batch_norm() -> "tuple[list[dict], float]":
+    """The batch-norm kernels (``ops/batch_norm.py``) against
+    ``F.batch_norm`` in training, both held to ``F.batch_norm`` in
+    float64: the output, the running stats, and the gradients of the
+    input, the weight and the bias may be off by at most twice the float32
+    ``F.batch_norm``'s error (plus 1e-6 of the value's scale). Then a
+    forward and backward of each shape timed by CUDA events (median of
+    ``BN_REPS``) against its bytes bound. Returns the shapes' entries and
+    the largest error."""
+    import torch
+    import torch.nn.functional as F
+
+    from monocon_tpu_torch.ops import batch_norm as bn
+
+    def kernel(x, weight, bias, mean, var):
+        return bn.batch_norm_nchw(x, weight, bias, mean, var, 0.1, 1e-5)
+
+    def plain(x, weight, bias, mean, var):
+        return F.batch_norm(x, mean, var, weight, bias, True, 0.1, 1e-5)
+
+    def step(fn, dtype, x, grad, weight, bias):
+        c = x.shape[1]
+        leaves = [t.to(dtype, copy=True).requires_grad_(True)
+                  if t is not None else None for t in (x, weight, bias)]
+        running = [torch.zeros(c, device=DEVICE, dtype=dtype),
+                   torch.ones(c, device=DEVICE, dtype=dtype)]
+        out = fn(*leaves, *running)
+        out.backward(grad.to(dtype))
+        return [out.detach(), *running] + [t.grad for t in leaves
+                                           if t is not None]
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    shapes, worst = [], 0.0
+    for b, c, h, w, affine in BN_SHAPES:
+        x = torch.randn(b, c, h, w, device=DEVICE, generator=gen) * 2 + 0.5
+        grad = torch.randn(b, c, h, w, device=DEVICE, generator=gen)
+        weight = (torch.rand(c, device=DEVICE, generator=gen) + 0.5
+                  if affine else None)
+        bias = (torch.randn(c, device=DEVICE, generator=gen)
+                if affine else None)
+        before = bn.launch_count
+        got = step(kernel, torch.float32, x, grad, weight, bias)
+        torch.cuda.synchronize()
+        if bn.launch_count != before + 4:
+            raise AssertionError("batch_norm_nchw must launch its four "
+                                 "kernels on the card")
+        f32 = step(plain, torch.float32, x, grad, weight, bias)
+        f64 = step(plain, torch.float64, x, grad, weight, bias)
+        errs = []
+        for a, p32, want in zip(got, f32, f64):
+            scale = float(want.abs().max())
+            err = float((a.double() - want).abs().max())
+            limit = 2 * float((p32.double() - want).abs().max()) + (
+                1e-6 * scale)
+            if not err <= limit:
+                raise AssertionError(
+                    f"batch norm {(b, c, h, w, affine)}: kernel off by "
+                    f"{err:.3e} against limit {limit:.3e}")
+            errs.append(err)
+        times = []
+        for _ in range(BN_REPS + 2):
+            leaves = [t.detach().requires_grad_(True) if t is not None
+                      else None for t in (x, weight, bias)]
+            running = [torch.zeros(c, device=DEVICE),
+                       torch.ones(c, device=DEVICE)]
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            kernel(*leaves, *running).backward(grad)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = float(np.median(times[2:]))
+        bound = bn_bound_ms(x.numel(), x.numel())
+        shapes.append({"shape": [b, c, h, w], "affine": affine, "ms": ms,
+                       "bound_ms": bound, "bound_share": bound / ms,
+                       "max_abs_err": max(errs)})
+        worst = max(worst, max(errs))
+        log(f"[kernel] batch norm {(b, c, h, w)} affine={affine}: max "
+            f"|kernel - F.batch_norm f64| {max(errs):.3e} (output, running "
+            f"stats, gradients); forward + backward {ms:.4f} ms by CUDA "
+            f"events, bound {bound:.4f} ms, {bound / ms:.1%} of it")
+    return shapes, worst
+
+
+def bn_entry(calls: "list[dict]", worst: float, step: dict,
+             launched: int) -> dict:
+    """The kernels-line entry of the batch-norm kernels: the checked calls
+    (``per_call``), and per step of the float32 DLA-34 train step with
+    cuDNN autotuned (contiguous NCHW) its device ms and bytes bound.
+    ``launched``: the kernels' launches in this process after the check;
+    every one must be that step's (the other paths of this process run
+    channels_last, or float32 under cuDNN's heuristics)."""
+    if launched != step.get("launches"):
+        raise AssertionError(
+            f"the batch-norm kernels launched {launched} times after their "
+            f"check, {step.get('launches')} of them in the autotuned "
+            "float32 step")
+    ms, bound = step.get("ms_per_step"), step.get("bound_ms_per_step")
+    return {
+        "name": "batch_norm_nchw",
+        "route": "triton",
+        "source": "monocon_tpu_torch/ops/batch_norm.py",
+        "replaces": None,
+        "max_abs_err": worst,
+        "ms": ms,
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "bound_share": bound / ms if ms and bound else None,
+        "library_ms": None,
+        "per_call": calls,
+        "launches": step["launches"],
+        "launches_by_path": {
+            f"train_step_f32_autotuned ({step['steps']} steps)":
+                step["launches"],
+            "every other path of this process": launched - step["launches"]},
+    }
+
+
 def top30_keys(pred, b: int) -> dict:
     """(cell, class) -> (rank, heatmap peak) of each of image ``b``'s
     decoded top-30 detections."""
@@ -1017,7 +1161,7 @@ def phase_eval(tmp: Path) -> None:
     torch.save({"state_dict": {"model": model.state_dict()}}, pth)
     cfg = get_default_cfg()
     cfg.DATA.ROOT = str(root)
-    engine = MonoConEngine(cfg, is_test=True)
+    engine = MonoConEngine(cfg, is_test=True, autotune=False)
     engine.load_checkpoint(str(pth))
     log(f"[eval] MonoConEngine on {engine.device}: batch "
         f"{cfg.DATA.BATCH_SIZE}, canvas {cfg.TPU.PAD_HW}, "
@@ -1247,14 +1391,15 @@ def phase_train_loop(tmp: Path) -> "tuple[list[dict], dict]":
     torch.use_deterministic_algorithms(True)
     torch.backends.cudnn.deterministic = True
     try:
-        engine_b = MonoConEngine(loop_cfg(root, out_b, SEED))
+        engine_b = MonoConEngine(loop_cfg(root, out_b, SEED), autotune=False)
         engine_b.train_loader = FirstSteps(engine_b.train_loader,
                                            LOOP_CKPT_STEPS)
         launches_b = count_launches(engine_b.train_one_epoch,
                                     LOOP_CKPT_STEPS, "B")
         check_losses(engine_b.entire_losses, "B")
         del engine_b
-        engine_c = MonoConEngine(loop_cfg(root, out_b, LOOP_RESUME_SEED))
+        engine_c = MonoConEngine(loop_cfg(root, out_b, LOOP_RESUME_SEED),
+                                 autotune=False)
         if (engine_c.epochs, engine_c._resume_step_in_epoch,
                 engine_c.cfg.SEED) != (1, LOOP_CKPT_STEPS, SEED):
             raise AssertionError(
@@ -1301,7 +1446,7 @@ def phase_train_loop(tmp: Path) -> "tuple[list[dict], dict]":
     cfg.PERIOD.CKPT_PERIOD_STEPS = 0
     cfg.PERIOD.EVAL_PERIOD = -1
     cfg.PERIOD.LOG_PERIOD = LOOP_STEPS
-    engine = MonoConEngine(cfg)
+    engine = MonoConEngine(cfg, autotune=False)
     engine.train_loader = waited = LoaderWait(engine.train_loader)
     torch.cuda.reset_peak_memory_stats()
     launches_d = count_launches(engine.train, LOOP_TIMED_EPOCHS * LOOP_STEPS,
@@ -1383,7 +1528,8 @@ def check_bf16(got, want, ref_f32, what: str) -> "tuple[float, float]":
     return err, gap
 
 
-def make_detector(num_layers: int, device, dtype, seed: int):
+def make_detector(num_layers: int, device, dtype, seed: int,
+                  memory_format=None):
     """``create_detector`` with weights from ``seed``. DLA-102's random init
     carries its eval-mode activations to about 1e5 through the residual
     roots, and the 3D decode overflows; so its BN running stats are set to
@@ -1395,7 +1541,9 @@ def make_detector(num_layers: int, device, dtype, seed: int):
 
     model = create_detector(num_layers,
                             generator=torch.Generator().manual_seed(seed),
-                            device=device, compute_dtype=dtype)
+                            device=device, compute_dtype=dtype,
+                            memory_format=(memory_format
+                                           or torch.channels_last))
     if num_layers != 102:
         return model
     cpu = create_detector(num_layers,
@@ -1469,11 +1617,13 @@ def serve_fps(num_layers: int, dtype, seed: int) -> float:
     return SERVE_BATCH * iters / dt
 
 
-def kernel_breakdown(fn, top: int = 6) -> str:
+def kernel_breakdown(fn, top: int = 6,
+                     by_name: "dict | None" = None) -> str:
     """One ``fn()`` under torch.profiler: the card's busy share of its wall
     time, its kernels' summed device time, and the ``top`` kernels by
     device time (a lower bound on the untraced busy share: tracing slows
-    the host)."""
+    the host). ``by_name``, where given, receives each kernel's (launches,
+    device us)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1483,7 +1633,7 @@ def kernel_breakdown(fn, top: int = 6) -> str:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name = {} if by_name is None else by_name
     spans = []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -1507,24 +1657,53 @@ def kernel_breakdown(fn, top: int = 6) -> str:
 
 
 def timed_steps(num_layers: int, dtype, batch_size: int, seed: int,
-                what: str, breakdown: bool = False) -> "tuple[float, int, int]":
+                what: str, breakdown: bool = False,
+                bn_step: "dict | None" = None) -> "tuple[float, int, int]":
     """``TRAIN_STEPS`` train steps at 384x1280 with uint8 images, the
     splat kernel's count set to 0 before them: (mean ms over steps 1 on,
     max_memory_allocated, launches). Two launches per step, and every loss
-    finite. ``breakdown``: then one more step under torch.profiler."""
+    finite. The detector takes the memory format of this process's cuDNN
+    setting (``conv_memory_format``); in contiguous NCHW every call of a
+    train-mode BatchNorm2d (not the attention's MomentsBatchNorm) launches
+    the batch-norm kernels twice, and its backward, where the loss reaches
+    it, twice more; in channels_last none. ``breakdown``: then one more
+    step under torch.profiler. ``bn_step``, where given, receives the
+    batch-norm kernels' launches over every step, and with ``breakdown``
+    their device ms and bytes bound in the profiled step."""
     import torch
 
     from monocon_tpu_torch import build_optimizer, train_step
+    from monocon_tpu_torch.models.detector import conv_memory_format
+    from monocon_tpu_torch.models.layers import BatchNorm2d, MomentsBatchNorm
+    from monocon_tpu_torch.ops import batch_norm as bn
     from monocon_tpu_torch.ops import splat
 
     gc.collect()
     torch.cuda.empty_cache()
-    model = make_detector(num_layers, DEVICE, dtype, seed)
+    model = make_detector(num_layers, DEVICE, dtype, seed, conv_memory_format(
+        DEVICE, dtype, torch.backends.cudnn.benchmark))
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d)
+             and not isinstance(m, MomentsBatchNorm)]
+    calls = dict.fromkeys(("forward", "backward", "forward_elements",
+                           "backward_elements"), 0)
+
+    def on_backward(grad):
+        calls["backward"] += 1
+        calls["backward_elements"] += grad.numel()
+
+    def on_forward(module, args, out):
+        calls["forward"] += 1
+        calls["forward_elements"] += out.numel()
+        if out.requires_grad:
+            out.register_hook(on_backward)
+
+    seen = [m.register_forward_hook(on_forward) for m in norms]
     opt, solver = build_optimizer(model.parameters(), total_steps=TRAIN_STEPS)
     batch = train_batch(np.random.default_rng(seed + 1), batch_size, PAD_HW,
                         DEVICE)
     torch.cuda.reset_peak_memory_stats()
     splat.launch_count = 0
+    bn_before = bn.launch_count
     times = []
     for step in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1538,6 +1717,15 @@ def timed_steps(num_layers: int, dtype, batch_size: int, seed: int,
     if launches != 2 * TRAIN_STEPS:
         raise AssertionError(f"configs: {what}: splat launched {launches} "
                              f"times in {TRAIN_STEPS} steps")
+    nchw = model.memory_format == torch.contiguous_format
+    bn_launches = bn.launch_count - bn_before
+    if (calls["forward"] != len(norms) * TRAIN_STEPS or bn_launches != (
+            2 * calls["forward"] + 2 * calls["backward"] if nchw else 0)):
+        raise AssertionError(
+            f"configs: {what}: the batch-norm kernels launched {bn_launches} "
+            f"times in {TRAIN_STEPS} steps of a {model.memory_format} model "
+            f"with {len(norms)} batch norms: {calls['forward']} calls, "
+            f"{calls['backward']} backward")
     peak = torch.cuda.max_memory_allocated()
     ms = float(np.mean(times[1:])) * 1e3
     cudnn = ("cuDNN autotuned" if torch.backends.cudnn.benchmark
@@ -1546,22 +1734,40 @@ def timed_steps(num_layers: int, dtype, batch_size: int, seed: int,
         f"images, {cudnn}: {ms:.3f} ms/step over steps 1-{TRAIN_STEPS - 1} "
         f"({', '.join(f'{t * 1e3:.3f}' for t in times[1:])}; step 0: "
         f"{times[0] * 1e3:.3f} ms), {batch_size * 1e3 / ms:.3f} images/s; "
-        f"max_memory_allocated {peak} bytes; splat launches {launches}")
+        f"max_memory_allocated {peak} bytes; splat launches {launches}; "
+        f"{model.memory_format}, batch-norm kernel launches {bn_launches} "
+        f"({calls['forward']} calls, {calls['backward']} backward)")
     if breakdown:
+        kernels, before = {}, dict(calls)
         log(f"[configs] {what}: one more B={batch_size} step under "
             "torch.profiler: " + kernel_breakdown(
-                lambda: train_step(model, opt, solver, batch)))
+                lambda: train_step(model, opt, solver, batch),
+                by_name=kernels))
+        if bn_step is not None and nchw:
+            bn_step.update(
+                ms_per_step=sum(us for name, (_, us) in kernels.items()
+                                if name.startswith(BN_KERNELS)) / 1e3,
+                bound_ms_per_step=bn_bound_ms(*(
+                    calls[k] - before[k] for k in ("forward_elements",
+                                                   "backward_elements"))))
+    for h in seen:
+        h.remove()
+    if bn_step is not None:
+        bn_step.update(launches=bn.launch_count - bn_before,
+                       steps=TRAIN_STEPS + breakdown,
+                       memory_format=str(model.memory_format))
     del model, opt, solver, batch
     gc.collect()
     torch.cuda.empty_cache()
     return ms, peak, launches
 
 
-def phase_bf16() -> "tuple[int, float]":
+def phase_bf16() -> "tuple[int, float, dict]":
     """bfloat16 DLA-34: serving and the train step, card against CPU at
     64x160, then timed at 384x1280. Returns the splat launches of the
-    timed steps and the B=16 ms/step with cuDNN autotuned (as the train
-    CLI runs the shipped config)."""
+    timed steps, the B=16 ms/step with cuDNN autotuned (as the train
+    CLI runs the shipped config), and the batch-norm kernels' record of
+    the float32 step with cuDNN autotuned (contiguous NCHW)."""
     import torch
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1591,7 +1797,7 @@ def phase_bf16() -> "tuple[int, float]":
     # As chip_smoke's other phases run (cuDNN's heuristics), then as the
     # train CLI runs (USE_BENCHMARK: cuDNN autotunes); float32 beside it in
     # the same call, with where the card's time goes in one step of each.
-    launches = 0
+    launches, bn_step = 0, {}
     for benchmark in (False, True):
         torch.backends.cudnn.benchmark = benchmark
         try:
@@ -1601,10 +1807,10 @@ def phase_bf16() -> "tuple[int, float]":
                     breakdown=batch_size == TRAIN_BATCH)
                 launches += count
             timed_steps(34, f32, TRAIN_BATCH, SEED, "float32 DLA-34 train",
-                        breakdown=True)
+                        breakdown=True, bn_step=bn_step if benchmark else None)
         finally:
             torch.backends.cudnn.benchmark = False
-    return launches, ms
+    return launches, ms, bn_step
 
 
 def phase_dla102() -> int:
@@ -2442,6 +2648,8 @@ def phase_bench(tmp: Path) -> None:
 def main() -> int:
     import torch
 
+    from monocon_tpu_torch.ops import batch_norm as bn
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -2451,6 +2659,8 @@ def main() -> int:
     phase_build()
     rng = np.random.default_rng(SEED)
     step_calls, worst = phase_kernel(rng)
+    bn_calls, bn_worst = phase_batch_norm()
+    bn.launch_count = 0
     phase_serve()
     by_path = {"train_step": phase_train()}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2462,7 +2672,7 @@ def main() -> int:
         by_path.update(loop_launches)
         gc.collect()
         torch.cuda.empty_cache()
-        by_path["train_step_bf16"], bf16_b16_ms = phase_bf16()
+        by_path["train_step_bf16"], bf16_b16_ms, bn_step = phase_bf16()
         by_path["train_step_dla102"] = phase_dla102()
         by_path["config_file_run"] = phase_config_file(
             Path(tmp) / "kitti_train", Path(tmp) / "run_config")
@@ -2482,7 +2692,8 @@ def main() -> int:
     entry["launches"] = by_path["train_loop_D"]
     entry["launches_by_path"] = by_path
     print(card, flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, bn_entry(
+        bn_calls, bn_worst, bn_step, bn.launch_count)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

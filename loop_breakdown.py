@@ -93,7 +93,7 @@ def main() -> int:
         cfg.PERIOD.CKPT_PERIOD_STEPS = 0
         cfg.PERIOD.EVAL_PERIOD = -1
         cfg.PERIOD.LOG_PERIOD = steps
-        engine = MonoConEngine(cfg)
+        engine = MonoConEngine(cfg, autotune=False)
         loader = engine.train_loader
         waited = smoke.LoaderWait(loader)
 

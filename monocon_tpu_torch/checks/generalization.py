@@ -154,8 +154,8 @@ def run_generalization(out: str, epochs: int = 250, train: int = 200,
 
     cfg = check_config(root, out, epochs, train, batch, augment, dtype, seed,
                        snapshot_eval, image_hw, crop_hw, sets)
-    configure_backends(cfg, deterministic=False)
-    engine = MonoConEngine(cfg, device=device)
+    autotune = configure_backends(cfg, deterministic=False)
+    engine = MonoConEngine(cfg, device=device, autotune=autotune)
     if engine.epochs <= engine.target_epochs:
         engine.train()
     else:

@@ -35,7 +35,7 @@ from ..data.transforms import Normalize, Pad
 from ..device import resolve_device
 from ..engine.engine import dispatch_detection, fetch_detection
 from ..engine.train_step import train_step
-from ..models.detector import create_detector
+from ..models.detector import conv_memory_format, create_detector
 from ..solver.schedule import build_optimizer
 from ..utils.convert import (convert_to_kitti_2d, convert_to_kitti_3d,
                              split_batch_detections)
@@ -82,13 +82,15 @@ def run_overfit(root: str, steps: int = 4000, lr: float = 5e-4,
                 device: "str | torch.device | None" = None,
                 image_hw: Tuple[int, int] = IMAGE_HW,
                 model: Optional[torch.nn.Module] = None,
-                on_step: Optional[Callable[..., None]] = None
-                ) -> Dict[str, Any]:
+                on_step: Optional[Callable[..., None]] = None,
+                autotune: bool = False) -> Dict[str, Any]:
     """Train ``steps`` steps on the first batch of the tree at ``root`` (see
     :func:`write_tree`), padded to ``image_hw``, then evaluate it. ``model``
     replaces the detector from seed 0 (its ``compute_dtype`` then rules,
     not ``dtype``). ``on_step(i, losses, solver)``, where given, is called
     after each step (``overfit_breakdown.py`` reads the run through it).
+    ``autotune``: whether cuDNN autotunes the process's convolutions, which
+    picks the detector's memory format (``conv_memory_format``).
 
     Returns ``log`` (the 11 losses of steps 0, 1000, 2000, ...), ``final``
     (those of the last step, taken before its update), ``nonzero_ap``
@@ -98,10 +100,12 @@ def run_overfit(root: str, steps: int = 4000, lr: float = 5e-4,
     device = resolve_device(device)
     dataset, host, batch = overfit_batch(root, device, image_hw)
     if model is None:
+        compute_dtype = (torch.bfloat16 if dtype == "bfloat16"
+                         else torch.float32)
         model = create_detector(
             generator=torch.Generator().manual_seed(0), device=device,
-            compute_dtype=(torch.bfloat16 if dtype == "bfloat16"
-                           else torch.float32))
+            compute_dtype=compute_dtype, memory_format=conv_memory_format(
+                device, compute_dtype, autotune))
     optimizer, solver = build_optimizer(model.parameters(), lr=lr,
                                         total_steps=steps,
                                         use_scheduler=True)
@@ -155,12 +159,13 @@ def main(argv=None) -> int:
     from ..train import configure_backends
 
     device = resolve_device(args.device)
-    configure_backends(get_default_cfg(), deterministic=False)
+    autotune = configure_backends(get_default_cfg(), deterministic=False)
     print(f"device: {device_label(device)}", flush=True)
     start = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="overfit_") as root:
         write_tree(root)
-        result = run_overfit(root, args.steps, args.lr, args.dtype, device)
+        result = run_overfit(root, args.steps, args.lr, args.dtype, device,
+                             autotune=autotune)
     print(f"{args.steps} steps in {result['train_s']:.1f} s "
           f"({result['ms_per_step']:.2f} ms/step); wall "
           f"{time.perf_counter() - start:.1f} s")

@@ -94,7 +94,7 @@ from ..data.loader import DataLoader, use_on_current_stream
 from ..data.monocon_dataset import MonoConDataset
 from ..data.transforms import default_test_transforms, default_train_transforms
 from ..device import resolve_device
-from ..models.detector import create_detector
+from ..models.detector import conv_memory_format, create_detector
 from ..ops.decode import decode_predictions
 from ..ops.image_norm import normalize_if_raw
 from ..parallel import data_parallel, rank_and_world, replicate_state
@@ -175,9 +175,14 @@ class MonoConEngine:
         auto_resume: bool = True,
         is_test: bool = False,
         device: "str | torch.device | None" = None,
+        autotune: Optional[bool] = None,
     ):
         """``device``: the card unless the caller names another (see
-        :func:`resolve_device`)."""
+        :func:`resolve_device`). ``autotune``: whether cuDNN autotunes this
+        process's convolutions, as the process's owner set
+        ``torch.backends.cudnn.benchmark`` (``train.configure_backends``);
+        by default ``cfg.USE_BENCHMARK``. With the device and the compute
+        dtype it picks the model's memory format (``conv_memory_format``)."""
         if cfg is None:
             cfg = get_default_cfg()
         elif isinstance(cfg, str):
@@ -231,13 +236,16 @@ class MonoConEngine:
         if not is_test:
             self.train_dataset, self.train_loader = self._build_loader(True)
         self.test_dataset, self.test_loader = self._build_loader(False)
+        dtype = (torch.bfloat16 if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+                 else torch.float32)
+        if autotune is None:
+            autotune = bool(cfg.USE_BENCHMARK)
         self.model = create_detector(
             cfg.MODEL.BACKBONE.NUM_LAYERS, cfg.MODEL.HEAD.NUM_CLASSES,
             generator=torch.Generator().manual_seed(max(cfg.SEED, 0)),
-            device=self.device,
-            compute_dtype=(torch.bfloat16
-                           if cfg.TPU.COMPUTE_DTYPE == "bfloat16"
-                           else torch.float32)).eval()
+            device=self.device, compute_dtype=dtype,
+            memory_format=conv_memory_format(self.device, dtype,
+                                             autotune)).eval()
 
         self.optimizer = self.solver = None
         if not is_test:

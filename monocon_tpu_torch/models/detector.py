@@ -1,10 +1,27 @@
 """MonoCon detector: DLA backbone -> DLA-Up neck -> dense heads.
 
 Port of ``monocon_tpu/models/detector.py``. The image goes in NHWC
-``(B, H, W, 3)`` and predictions come out NHWC, as in the JAX package.
-Inside, the model is NCHW in ``channels_last`` memory format: a contiguous
-NHWC tensor permuted to NCHW already is a channels_last tensor, so neither
-boundary copies.
+``(B, H, W, 3)`` and predictions come out contiguous NHWC, as in the JAX
+package. Inside, the model is NCHW, held in the memory format its builder
+names (``create_detector(memory_format=...)``, by default
+``channels_last``). :func:`conv_memory_format` gives the one to name, from
+the device, the compute dtype and whether cuDNN autotunes; the engine
+names it for the process it builds in (``engine.py``):
+
+* float32 on a CUDA device whose convolutions cuDNN autotunes (the train
+  CLI's default, ``USE_BENCHMARK``): contiguous NCHW. With TF32 off its
+  convolutions run on the CUDA cores, where cuDNN's fastest float32
+  engines are NCHW kernels; in channels_last the autotuner picks them
+  anyway, with a transpose of the input before each and of the output
+  after it. The image is copied once into NCHW, and each head map once
+  back into NHWC. The train-mode batch norms of one process run on the
+  kernels of ``ops/batch_norm.py`` (``layers.py::BatchNorm2d``): cuDNN's
+  NCHW ones are slow on wide maps of few channels.
+* otherwise ``channels_last``: bfloat16's tensor-core engines are NHWC;
+  without autotuning, cuDNN's heuristics pick slower float32 engines for
+  NCHW than for channels_last; on the CPU the model runs as it always
+  has. A contiguous NHWC tensor permuted to NCHW already is a
+  channels_last tensor, so neither boundary copies.
 
 Compute dtype. The JAX package computes in bfloat16 by giving every flax
 module ``dtype=jnp.bfloat16``: convolutions (the neck's depthwise up-convs
@@ -67,14 +84,39 @@ class MonoConDetector(nn.Module):
         self.head = MonoConHeads(channels[START_LEVEL], num_classes, num_kpts,
                                  num_alpha_bins)
         self.compute_dtype = compute_dtype
+        self.memory_format = torch.channels_last
+
+    def to_memory_format(self, memory_format: torch.memory_format
+                         ) -> "MonoConDetector":
+        """Hold the weights in ``memory_format`` (``torch.channels_last``
+        or ``torch.contiguous_format``) and run the forward in it."""
+        self.memory_format = memory_format
+        return self.to(memory_format=memory_format)
 
     def forward(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
         """image: (B, H, W, 3) normalised -> prediction dict at stride 4,
         float32."""
         with torch.autocast(image.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
-            feats = self.backbone(image.permute(0, 3, 1, 2))
+            x = image.permute(0, 3, 1, 2)
+            if self.memory_format == torch.contiguous_format:
+                x = x.contiguous()
+            feats = self.backbone(x)
             return self.head(self.neck(feats))
+
+
+def conv_memory_format(device: "str | torch.device",
+                       compute_dtype: torch.dtype,
+                       autotune: bool) -> torch.memory_format:
+    """The memory format for a detector on ``device`` computing in
+    ``compute_dtype``, where ``autotune`` says whether cuDNN autotunes the
+    process's convolutions (``torch.backends.cudnn.benchmark`` as its
+    owner sets it): contiguous NCHW for float32 on a CUDA device that
+    autotunes, ``channels_last`` otherwise (see the module docstring)."""
+    if (torch.device(device).type == "cuda"
+            and compute_dtype == torch.float32 and autotune):
+        return torch.contiguous_format
+    return torch.channels_last
 
 
 def _he_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -123,16 +165,18 @@ def init_detector_(model: MonoConDetector, generator: torch.Generator) -> None:
 def create_detector(num_layers: int = 34, num_classes: int = 3,
                     generator: Optional[torch.Generator] = None,
                     device: "str | torch.device | None" = None,
-                    compute_dtype: torch.dtype = torch.float32
+                    compute_dtype: torch.dtype = torch.float32,
+                    memory_format: torch.memory_format = torch.channels_last
                     ) -> MonoConDetector:
     """A randomly initialised DLA-``num_layers`` detector (34, 46, 60 or
-    102) on ``device`` (``cuda`` unless the caller names another), in
-    channels_last, computing in ``compute_dtype``. ``generator`` is a CPU
-    ``torch.Generator``; by default one seeded with 0."""
+    102) on ``device`` (``cuda`` unless the caller names another), held in
+    ``memory_format`` (see :func:`conv_memory_format`), computing in
+    ``compute_dtype``. ``generator`` is a CPU ``torch.Generator``; by
+    default one seeded with 0."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = MonoConDetector(num_layers, num_classes,
                             compute_dtype=compute_dtype)
     init_detector_(model, generator)
-    return model.to(device=device, memory_format=torch.channels_last)
+    return model.to(device=device).to_memory_format(memory_format)

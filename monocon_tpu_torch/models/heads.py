@@ -45,6 +45,12 @@ _BRANCHES = {
 }
 
 
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """A head's NCHW output as contiguous NHWC float32: a permute with no
+    copy from channels_last, one copy from contiguous NCHW."""
+    return x.permute(0, 2, 3, 1).float().contiguous()
+
+
 def head_branch(in_ch: int, feat_ch: int, out_ch: int) -> nn.Sequential:
     """3x3 conv -> AttnBN(10) -> ReLU -> 1x1 conv."""
     return nn.Sequential(
@@ -81,14 +87,11 @@ class MonoConHeads(nn.Module):
         self.dir_reg = nn.Sequential(nn.Conv2d(feat_ch, num_alpha_bins, 1))
 
     def forward(self, feat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        # NCHW in channels_last -> NHWC is a permute with no copy.
-        out = {
-            key: getattr(self, name)(feat).permute(0, 2, 3, 1).float()
-            for name, key in _BRANCHES.items()
-        }
+        out = {key: _nhwc(getattr(self, name)(feat))
+               for name, key in _BRANCHES.items()}
         dir_feat = self.dir_feat(feat)
-        out["alpha_cls"] = self.dir_cls(dir_feat).permute(0, 2, 3, 1).float()
-        out["alpha_offset"] = self.dir_reg(dir_feat).permute(0, 2, 3, 1).float()
+        out["alpha_cls"] = _nhwc(self.dir_cls(dir_feat))
+        out["alpha_offset"] = _nhwc(self.dir_reg(dir_feat))
         if self.spatial is not None:
             widths = [v.shape[-1] for v in out.values()]
             whole = gather_rows(torch.cat(list(out.values()), -1),

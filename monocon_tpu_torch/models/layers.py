@@ -1,4 +1,5 @@
-"""Shared model building blocks (NCHW modules, run in channels_last).
+"""Shared model building blocks (NCHW modules; channels_last, but for
+contiguous NCHW in float32 on a CUDA device that autotunes: ``detector.py``).
 
 Port of ``monocon_tpu/models/layers.py``. ``nn.BatchNorm2d`` already has the
 semantics that the JAX package rebuilds in ``TorchBatchNorm``: it normalises
@@ -16,7 +17,14 @@ float64 and added over the ranks of a process group in one
 autograd-aware all-reduce per layer. The output is normalised in float32
 (float64 for a float64 input) by the global biased variance, and
 ``running_var`` takes the global ``n / max(n - 1, 1)`` correction. Outside a scope each layer runs as it
-always did. ``nn.SyncBatchNorm`` is not used: it runs only on CUDA tensors,
+always did.
+
+Which train-mode BatchNorm runs where. Inside a scope (a step over more
+than one rank, or with a ``valid`` row mask): :func:`scoped_batch_norm`,
+plain PyTorch ops, in either memory format. Outside one: for a contiguous
+NCHW float32 CUDA input, the kernels of ``ops/batch_norm.py``; otherwise
+``nn.BatchNorm2d``'s own (cuDNN's on the card). Evaluation always takes
+``nn.BatchNorm2d``'s. ``nn.SyncBatchNorm`` is not used: it runs only on CUDA tensors,
 and ``convert_sync_batchnorm`` would replace the two subclasses below by a
 plain BatchNorm. Nor is ``torch.distributed.nn.functional.all_reduce``,
 deprecated in torch 2.13: :class:`AllReduceSum` is its sum.
@@ -44,6 +52,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.batch_norm import batch_norm_nchw
 from ..parallel.mesh import SpatialLayout
 from ..parallel.spatial import HaloExchange
 
@@ -67,13 +76,27 @@ class BatchStats:
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` that takes its train-mode moments from the
-    :class:`BatchStats` of an enclosing :func:`batch_stats_scope`."""
+    :class:`BatchStats` of an enclosing :func:`batch_stats_scope`.
+
+    Outside a scope, a train-mode float32 CUDA input in contiguous NCHW
+    (the autotuned float32 model's, ``detector.py``) goes to the kernels of
+    ``ops/batch_norm.py``, not cuDNN's or PyTorch's own: for NCHW both
+    give each channel one block of threads and are several times slower
+    over a wide map of few channels. In channels_last, cuDNN's kernels are
+    the fastest and run as before."""
 
     batch_stats: Optional[BatchStats] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and self.batch_stats is not None:
             return scoped_batch_norm(self, x, self.batch_stats)
+        if (self.training and x.is_cuda and x.dtype == torch.float32
+                and x.is_contiguous() and not x.is_contiguous(
+                    memory_format=torch.channels_last)):
+            self.num_batches_tracked.add_(1)
+            return batch_norm_nchw(x, self.weight, self.bias,
+                                   self.running_mean, self.running_var,
+                                   self.momentum, self.eps)
         return super().forward(x)
 
 

@@ -75,7 +75,8 @@ def run_test(cfg, device: torch.device, args) -> None:
     """Evaluate and draw on ``device``, as one process or one rank."""
     from .engine.engine import MonoConEngine
 
-    engine = MonoConEngine(cfg, is_test=True, device=device)
+    # The test CLI leaves cuDNN's heuristics on (no autotuning).
+    engine = MonoConEngine(cfg, is_test=True, device=device, autotune=False)
     engine.load_checkpoint(args.checkpoint_file)
     if engine.is_main:
         print(f"Checkpoint '{args.checkpoint_file}' loaded.", flush=True)

@@ -136,13 +136,15 @@ def run_training(cfg, device: torch.device, deterministic: bool,
     if not dist.is_initialized() or dist.get_rank() == 0:
         tprint(f"Using random seed {cfg.SEED}.")
 
-    configure_backends(cfg, deterministic)
-    MonoConEngine(cfg, device=device).train(resume_from=resume_from)
+    autotune = configure_backends(cfg, deterministic)
+    MonoConEngine(cfg, device=device, autotune=autotune).train(
+        resume_from=resume_from)
 
 
-def configure_backends(cfg, deterministic: bool) -> None:
+def configure_backends(cfg, deterministic: bool) -> bool:
     """The CUDA settings of a training run: TF32 off; deterministic
-    algorithms, or cuDNN's autotuning as ``cfg.USE_BENCHMARK`` says."""
+    algorithms, or cuDNN's autotuning as ``cfg.USE_BENCHMARK`` says.
+    Returns whether cuDNN autotunes (the engine's ``autotune``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if deterministic:
@@ -152,6 +154,7 @@ def configure_backends(cfg, deterministic: bool) -> None:
         torch.backends.cudnn.benchmark = False
     else:
         torch.backends.cudnn.benchmark = bool(cfg.USE_BENCHMARK)
+    return torch.backends.cudnn.benchmark
 
 
 if __name__ == "__main__":

@@ -18,7 +18,10 @@ order of their sums:
     ``tests/test_parallel.py`` holds the JAX mesh to one device);
   * every 4D output of the backbone's and the neck's modules has its
     band's height on each rank, never the whole canvas's;
-  * ``gradcheck`` of a halo exchange and a row gather over the two ranks.
+  * ``gradcheck`` of a halo exchange and a row gather over the two ranks;
+  * the losses, gradients, buffers, eval maps and band heights again with
+    the ranks' detector in contiguous NCHW, the format float32 runs in
+    on a CUDA device, against the same one process (channels_last).
 
 ``tests/test_torch_spatial_layouts.py`` runs the same checks on 2x2 ranks
 with a padded remainder, ``tests/test_torch_spatial_uneven.py`` on 1x4
@@ -319,6 +322,29 @@ def test_halo_exchange_and_gather_rows_gradcheck(ranks):
     """``gradcheck`` passes on every rank, and ``gather_rows`` puts the
     bands in space order at a map's stride."""
     for r in ranks:
+        assert r["gradcheck"] and r["gather_rows"]
+
+
+@pytest.fixture(scope="module")
+def ranks_nchw(inputs, tmp_path_factory):
+    """The layout's ranks with the detector in contiguous NCHW."""
+    procs = launch_ranks(dict(inputs, memory_format=torch.contiguous_format),
+                         LAYOUT["world"], tmp_path_factory.mktemp("nchw"))
+    try:
+        return finish_ranks(procs)
+    finally:
+        kill_ranks(procs)
+
+
+def test_contiguous_format_matches_one_process(inputs, ranks_nchw,
+                                               reference):
+    """The halo exchanges and the head maps' row gather in contiguous
+    NCHW: the same step and eval maps as one process, every rank alike,
+    band-height activations."""
+    check_one_process(ranks_nchw, reference, LAYOUT["world"], inputs)
+    check_ranks_agree(ranks_nchw)
+    check_band_heights(ranks_nchw, inputs)
+    for r in ranks_nchw:
         assert r["gradcheck"] and r["gather_rows"]
 
 

@@ -118,7 +118,8 @@ def main(inputs_path, out_path):
                           inputs["batch_size"], len(img), layout.data_index,
                           layout.data_shards)
     band = rows["img"][:, slice(*layout.band)]
-    model = create_detector(device=device)
+    model = create_detector(device=device).to_memory_format(
+        inputs.get("memory_format", torch.channels_last))
     model.load_state_dict(inputs["state"])
     model = model.double().eval()
     seen, handles = output_heights(model)

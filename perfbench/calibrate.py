@@ -45,10 +45,7 @@ def main(argv=None) -> int:
         print("calibrate needs a CUDA device", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.benchmark = bool(
-        spec["config"]["cfg"].get("USE_BENCHMARK", True))
+    run.program_backends(spec["config"])
     config, traffic = spec["config"], spec["traffic"]
     for seed in args.seeds:
         t0 = time.perf_counter()

@@ -28,10 +28,21 @@ rounding (in DLA-34, the ``project`` convolutions that no path uses).
 The reference put in the program's place (``train_check``'s
 ``control``) reads each number the same way: computed in the precision
 below the configuration's (``tf32``), or with one of ``FAULTS`` planted.
+
+The reference model is the configuration's own: its ``"reference"`` key
+names a file of ``perfbench/reference/`` (:func:`reference_module`) that
+gives ``build(model, precision)``, the model of the configuration's
+``"model"`` dict, and ``backends(precision)``, the context it computes
+in; it may name the convolution the ``conv2`` fault mirrors
+(``FAULT_CONV``). Such a file may import the other reference files, and
+never the program, JAX or the JAX package (:func:`refused_imports`).
 """
 
 from __future__ import annotations
 
+import ast
+import importlib
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -39,10 +50,72 @@ import torch
 import torch.nn.functional as F
 
 from .reference import data as ref_data
-from .reference.model import Detector, Precision, backends
 from .reference.step import AdamW, train_step
 
+HERE = Path(__file__).resolve().parent
 NEGLIGIBLE = 1e-3
+REFERENCE_PACKAGE = f"{__package__}.reference"
+# Top-level modules a reference may not import: JAX, the JAX package and
+# the program. Of the benchmark's own modules it may import only
+# ``perfbench.reference``'s, since the others drive the program.
+NOT_FOR_REFERENCE = ("jax", "jaxlib", "flax", "monocon_tpu",
+                     "monocon_tpu_torch")
+DEFAULT_FAULT_CONV = "backbone.level5.tree2.conv2"
+
+
+def _imported(path: Path) -> List[str]:
+    """The modules a Python file imports, relative ones resolved as in
+    ``perfbench.reference``; of ``from m import a``, both ``m`` and
+    ``m.a``."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            package = (REFERENCE_PACKAGE.rsplit(".", node.level - 1)[0]
+                       if node.level else "")
+            base = ".".join(filter(None, (package, node.module)))
+            names += [base] + [f"{base}.{a.name}" for a in node.names]
+    return names
+
+
+def refused_imports(path: Path, seen: Optional[set] = None) -> List[str]:
+    """What a reference file, and the reference files it imports, import
+    that a reference may not (``NOT_FOR_REFERENCE``, or a module of the
+    benchmark outside ``perfbench.reference``)."""
+    seen = set() if seen is None else seen
+    seen.add(path)
+    out = []
+    for name in _imported(path):
+        top = name.split(".")[0]
+        in_reference = f"{name}.".startswith(f"{REFERENCE_PACKAGE}.")
+        if top in NOT_FOR_REFERENCE or (top == __package__
+                                        and not in_reference):
+            out.append(f"{path.name} imports {name}")
+        elif in_reference and name != REFERENCE_PACKAGE:
+            dep = path.parent / f"{name.split('.')[2]}.py"
+            if dep.is_file() and dep not in seen:
+                out += refused_imports(dep, seen)
+    return out
+
+
+def reference_module(config: Dict):
+    """The module of the configuration's ``"reference"`` file, a file of
+    ``perfbench/reference/`` named by its path from the checkout's root;
+    refused (ValueError) where it lies elsewhere or imports what a
+    reference may not."""
+    path = (HERE.parent / config["reference"]).resolve()
+    if path.parent != HERE / "reference" or not (
+            path.suffix == ".py" and path.is_file()):
+        raise ValueError(f"{config['name']}: the reference "
+                         f"{config['reference']} is no file of "
+                         "perfbench/reference/")
+    refused = refused_imports(path)
+    if refused:
+        raise ValueError(f"{config['name']}: a reference may import "
+                         "neither the program, JAX nor the harness: "
+                         f"{'; '.join(refused)}")
+    return importlib.import_module(f"{REFERENCE_PACKAGE}.{path.stem}")
 
 
 def reference_batches(record: Dict, config: Dict, augment: bool
@@ -90,14 +163,15 @@ def half_batches(batches: List[Dict]) -> List[Dict]:
     return [first_half(b) for b in batches]
 
 
-def flipped_conv2(model: Detector) -> None:
-    """The fault of a convolution kernel applied mirrored: the last
-    residual block's middle convolution (``backbone.level5.tree2.conv2``,
-    in either depth) computes with its kernel rotated by 180 degrees."""
-    conv = model.backbone.level5.tree2.conv2
+def flipped_conv2(model: torch.nn.Module, name: str) -> None:
+    """The fault of a convolution kernel applied mirrored: the convolution
+    ``name`` (by default the last residual block's middle one,
+    ``backbone.level5.tree2.conv2``, in either DLA depth) computes with its
+    kernel rotated by 180 degrees."""
+    conv = model.get_submodule(name)
 
     def forward(x):
-        return F.conv2d(x, conv.weight.flip(-2, -1), None, conv.stride,
+        return F.conv2d(x, conv.weight.flip(-2, -1), conv.bias, conv.stride,
                         conv.padding, conv.dilation, conv.groups)
 
     conv.forward = forward
@@ -114,24 +188,24 @@ def reference_steps(record: Dict, config: Dict, batches: List[Dict],
     tensors by parameter name). ``precision`` may instead name one of
     ``FAULTS``, planted in a float32 reference: ``half`` (half of each
     batch left out, the mean over the rest), ``conv2``
-    (:func:`flipped_conv2`)."""
+    (:func:`flipped_conv2` of the reference's ``FAULT_CONV``)."""
     fault = precision if precision in FAULTS else None
     if fault is not None:
         precision = "float32"
     if fault == "half":
         batches = half_batches(batches)
-    model = Detector(int(config["model"]["num_layers"]),
-                     precision=Precision(precision)).to(device)
+    ref = reference_module(config)
+    model = ref.build(config["model"], precision).to(device)
     model.load_state_dict({k: v.to(device) for k, v in
                            record["weights"].items()})
     if fault == "conv2":
-        flipped_conv2(model)
+        flipped_conv2(model, getattr(ref, "FAULT_CONV", DEFAULT_FAULT_CONV))
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     opt = AdamW(params, float(config["cfg"]["SOLVER.OPTIM.LR"]),
                 int(record["total_steps"]))
     losses, grad1, terms1 = [], None, None
-    with backends(Precision(precision)):
+    with ref.backends(precision):
         for i, batch in enumerate(batches):
             out, grads = train_step(model, opt, _to(batch, device))
             losses.append(float(out["total_loss"]))

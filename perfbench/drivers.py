@@ -24,7 +24,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from . import trace as tr
-from .counts.flops import count_flops
+from .counts.flops import train_flops
 from .tree import ensure_tree
 from .weights import seeded_state_dict
 
@@ -145,21 +145,12 @@ class Cell:
         self.engine.model.load_state_dict(self.weights)
         del self.weights
 
-    def _count_train_flops(self, batch: Dict[str, torch.Tensor]) -> None:
-        """FLOPs of one forward + backward at the cell's shapes; the
-        weights are loaded afresh afterwards, so the count leaves no
-        trace in the program's state."""
-        from monocon_tpu_torch.ops.image_norm import normalize_if_raw
-
-        model = self.engine.train_model
-
-        def fwd_bwd():
-            model.train()
-            out = model(normalize_if_raw(batch["img"], batch["img_hw"]))
-            sum(v.float().mean() for v in out.values()).backward()
-
-        self.counters["flops_per_step"] = count_flops(fwd_bwd)
-        model.zero_grad(set_to_none=True)
+    def _count_train_flops(self) -> None:
+        """FLOPs of one forward + backward of the configuration's plain
+        reference at the cell's batch and canvas, on the meta device: a
+        hand-written kernel counts as the plain operations it replaces."""
+        self.counters["flops_per_step"] = train_flops(
+            self.config, self.batch, self.pad_hw)
 
     def _snapshot_grad(self) -> None:
         """The first step's gradient as AdamW got it: its first moment
@@ -228,7 +219,7 @@ class TrainStep(Cell):
                                                  (i + 1) * self.batch)),
              "program": _host(b)} for i, b in
             enumerate(self.ring[:CHECKED_STEPS])]
-        self._count_train_flops(self.ring[0])
+        self._count_train_flops()
         self._load_weights()
         losses = []
         for i in range(CHECKED_STEPS):

@@ -1,7 +1,9 @@
 """The training step's share of the card's dense peak in the configured
-dtype: ``torch.utils.flop_counter`` FLOPs of one forward + backward at
-the cell's shapes (counted at set-up) times the steps a second of the
-window outside the profiled stretch, over the peak."""
+dtype: ``torch.utils.flop_counter`` FLOPs of one forward + backward of
+the configuration's plain reference at the cell's shapes (counted at
+set-up on the meta device, ``counts/flops.py::train_flops``) times the
+steps a second of the window outside the profiled stretch, over the
+peak."""
 
 from perfbench.counts.peaks import peak_flops
 

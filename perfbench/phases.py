@@ -14,9 +14,9 @@ the program that caused them: the five children of the program's
 - Operations and gaps in no phase (the step's own time, the host outside
   any step, an operation with no launch time) go to ``REMAINDER``.
 
-All in seconds on the trace's clock. The device operations, their busy
-time and gaps are those ``trace.from_profiler`` reads; :func:`read_profiler`
-adds the program's spans and the launch times from the same profiler.
+All in seconds on the trace's clock. The device operations, their launch
+times, the busy time, gaps and the program's spans are those
+``trace.from_profiler`` reads.
 
     python3 -m perfbench.phases --workload <cell> --seed <n> [--steps 20]
 
@@ -28,65 +28,16 @@ device ms and idle ms a step, beside the totals they add up to.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 from . import trace as tr
 
-PROGRAM_SPAN_PREFIX = "monocon."
 STEP = "monocon.step"
 PHASES = ("targets", "forward", "losses", "backward", "solver")
 REMAINDER = "remainder"
-# Words in the name of a runtime or driver call that puts work on the
-# device (cudaLaunchKernel, cuLaunchKernelEx, cudaMemcpyAsync,
-# cudaMemsetAsync, ...); it shares its correlation id with that work.
-LAUNCH_WORDS = ("launch", "memcpy", "memset")
 # The least share of the stretch's device time that must have a launch
 # time, and that must fall in the five phases, for a reading.
 COVERED = 0.99
-
-
-@dataclass
-class Phased:
-    """A profiled stretch: ``trace`` as the benchmark reads it, the
-    program's ``monocon.*`` host spans, and for each of ``trace.ops`` in
-    order the host time of the call that launched it (None where the
-    profiler links none)."""
-
-    trace: tr.Trace
-    program_spans: List[Tuple[float, float, str]] = field(
-        default_factory=list)
-    launched: List[Optional[float]] = field(default_factory=list)
-
-
-def is_launch(name: str) -> bool:
-    """Whether a host event is a runtime or driver call that puts work on
-    the device."""
-    low = name.lower()
-    return low.startswith("cu") and any(w in low for w in LAUNCH_WORDS)
-
-
-def read_profiler(prof, wall: float, steps: int) -> Phased:
-    """``trace.from_profiler``'s reading of a finished
-    ``torch.profiler.profile``, with the program's spans and each device
-    operation's launch time."""
-    import torch
-
-    cuda = torch.autograd.DeviceType.CUDA
-    out = Phased(tr.from_profiler(prof, wall, steps))
-    op_ids, launches = [], {}
-    for e in prof.events():
-        start, end = e.time_range.start / 1e6, e.time_range.end / 1e6
-        if e.device_type == cuda:
-            # The operations from_profiler keeps, in its order.
-            if not getattr(e, "is_user_annotation", False):
-                op_ids.append(e.id)
-        elif e.name.startswith(PROGRAM_SPAN_PREFIX):
-            out.program_spans.append((start, end, e.name))
-        elif is_launch(e.name):
-            launches[e.id] = start
-    assert len(op_ids) == len(out.trace.ops)
-    out.launched = [launches.get(i) for i in op_ids]
-    return out
 
 
 @dataclass
@@ -120,37 +71,36 @@ def phase_at(spans: List, t: Optional[float]) -> str:
     return best[1] if best else REMAINDER
 
 
-def attribute(phased: Phased) -> Optional[Attribution]:
+def attribute(trace: tr.Trace) -> Optional[Attribution]:
     """The stretch's launches, device and idle time by phase; None for a
     stretch with no ``monocon.step`` span."""
-    if not any(name == STEP for _, _, name in phased.program_spans):
+    if not any(name == STEP for _, _, name in trace.program_spans):
         return None
     prefix = STEP + "."
     spans = [(start, end, name[len(prefix):])
-             for start, end, name in phased.program_spans
+             for start, end, name in trace.program_spans
              if name.startswith(prefix) and name[len(prefix):] in PHASES]
     keys = PHASES + (REMAINDER,)
     out = Attribution({p: 0 for p in keys}, {p: 0.0 for p in keys},
                       {p: 0.0 for p in keys})
-    for op, launched in zip(phased.trace.ops, phased.launched):
-        phase, dur = phase_at(spans, launched), op.end - op.start
+    for op in trace.ops:
+        phase, dur = phase_at(spans, op.launched), op.end - op.start
         out.launches[phase] += int(op.kernel)
         out.device_s[phase] += dur
-        if launched is not None:
+        if op.launched is not None:
             out.linked_s += dur
-    for start, end in tr.gaps(phased.trace):
+    for start, end in tr.gaps(trace):
         out.idle_s[phase_at(spans, start)] += end - start
     return out
 
 
-def report(phased: Phased) -> Dict:
+def report(trace: tr.Trace) -> Dict:
     """Each phase's and the remainder's numbers per step (ms, launches),
     beside the totals they add up to: kernels, busy time (the union) and
     summed gaps over the steps. ``covered`` is False where under 99% of
     the device time has a launch time or falls in the five phases: the
     table is then no reading of the phases."""
-    trace = phased.trace
-    out, steps = attribute(phased), max(trace.steps, 1)
+    out, steps = attribute(trace), max(trace.steps, 1)
     if out is None:
         return {"phases": None}
     table = {p: {"launches": out.launches[p] / steps,
@@ -191,10 +141,7 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.benchmark = bool(
-        spec["config"]["cfg"].get("USE_BENCHMARK", True))
+    run.program_backends(spec["config"])
     cell = KINDS[spec["traffic"]["kind"]](
         args.workload, spec["config"], spec["traffic"], args.seed, device)
     cell.setup()
@@ -214,7 +161,7 @@ def main(argv=None) -> int:
     prof.start()
     wall = steps()
     prof.stop()
-    out = report(read_profiler(prof, wall, args.steps))
+    out = report(tr.from_profiler(prof, wall, args.steps))
     out.update(workload=args.workload, seed=args.seed, card=run.card_label(),
                untraced_ms_per_step=1e3 * untraced / args.steps)
     print(json.dumps(out), flush=True)

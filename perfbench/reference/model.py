@@ -12,6 +12,10 @@ model and into the program under test.
 ``Precision`` decides how the convolutions compute: ``"float32"`` (TF32
 off, the reference) or ``"tf32"`` (TF32 on, the control of a float32
 configuration).
+
+A configuration names this file in its ``"reference"`` key; the check
+and the FLOP count take the model from :func:`build` and compute under
+:func:`backends` (``perfbench/check.py``).
 """
 
 from __future__ import annotations
@@ -307,13 +311,20 @@ class Detector(nn.Module):
             image.permute(0, 3, 1, 2).contiguous())))
 
 
+def build(model: Dict, precision: str = "float32") -> Detector:
+    """The detector a configuration's ``"model"`` dict describes, its
+    convolutions computing in ``precision`` (a mode of ``Precision``)."""
+    return Detector(int(model["num_layers"]), int(model["num_classes"]),
+                    precision=Precision(precision))
+
+
 @contextlib.contextmanager
-def backends(precision: Precision):
+def backends(precision: str):
     """TF32 on for the ``tf32`` precision (forward and backward), off
     otherwise."""
     old = (torch.backends.cudnn.allow_tf32,
            torch.backends.cuda.matmul.allow_tf32)
-    tf32 = precision.mode == "tf32"
+    tf32 = Precision(precision).mode == "tf32"
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
         yield

@@ -90,6 +90,18 @@ def set_caches() -> None:
     os.environ["TRITON_CACHE_DIR"] = str(cache / "triton")
 
 
+def program_backends(config: Dict) -> None:
+    """The program's float32 as the configurations state it: TF32 off in
+    convolutions and matrix products, cuDNN's autotuning as ``cfg``'s
+    ``USE_BENCHMARK`` says (the engine picks its memory format by it)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = bool(
+        config["cfg"].get("USE_BENCHMARK", True))
+
+
 def card_label() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = shutil.which("nvidia-smi")
@@ -151,7 +163,8 @@ def run_cell(spec: Dict, seed: int, seconds: float, trace: bool, device,
     if trace:
         ctx = {"kind": kind, "window": window, "counters": cell.counters,
                "trace": traced, "device_name": kind_name,
-               "dtype": cell.dtype, "pad_hw": cell.pad_hw}
+               "dtype": cell.dtype, "pad_hw": cell.pad_hw,
+               "batch": cell.batch, "config": config}
         result["metrics"] = per_layer(spec, ctx)
         if traced is not None:
             dev.update(busy_s=tr.busy_seconds(traced), window_s=traced.wall)
@@ -190,10 +203,7 @@ def main(argv=None) -> int:
         return 2
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.benchmark = bool(
-        spec["config"]["cfg"].get("USE_BENCHMARK", True))
+    program_backends(spec["config"])
     result, numbers = run_cell(spec, args.seed, args.seconds,
                                bool(args.trace), device)
     print(f"card: {card_label()}", file=sys.stderr)

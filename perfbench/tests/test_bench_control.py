@@ -47,6 +47,7 @@ def test_planted_faults_are_not_correct_at_a_small_size(workload, tmp_path):
                                       "dla102-f32.train-step"])
 def test_control_is_not_correct_on_the_card(workload, card):
     spec = run.cell_spec(workload)
+    run.program_backends(spec["config"])
     control = spec["config"]["control"]
     limits = spec["config"]["limits"]
     for seed in (1, 2, 3):

@@ -1,8 +1,10 @@
 """The step's phases (``perfbench/phases.py``): attribution by launch time
 and by a gap's start, sums that add up, the 99% guard, silence on a
 stretch without program spans or launch links, and a profiler stub read
-by ``read_profiler`` and, with and without ``monocon.*`` events, by the
-benchmark's own ``trace.from_profiler`` to the same numbers."""
+by the benchmark's ``trace.from_profiler`` (launch times and program
+spans kept), with and without ``monocon.*`` events, to the same
+numbers; a real profiler's ``monocon.*`` span kept, on the CPU, and its
+launch links, on the card."""
 
 from types import SimpleNamespace
 
@@ -28,7 +30,8 @@ def step_spans(t0):
 
 
 def make_phased(fills=True):
-    """Two steps of 10 s. The main thread launches in targets, forward,
+    """Two steps of 10 s, with the program's spans and each operation's
+    launch time. The main thread launches in targets, forward,
     losses and solver; autograd's thread launches backward's kernels
     while the main thread sits in backward; with ``fills``, one fill a
     step is launched in the step's own time. Gaps open in forward (3.6 ->
@@ -37,7 +40,7 @@ def make_phased(fills=True):
     t = trace.Trace(wall=20.0, steps=2)
     t.spans = [(0.0, 10.0, "perfbench.train_step"),
                (10.0, 20.0, "perfbench.train_step")]
-    launched = []
+    t.program_spans = step_spans(0.0) + step_spans(10.0)
     for t0 in (0.0, 10.0):
         for op, at in [
                 (DeviceOp("splat", t0 + 1.5, t0 + 2.0, True), t0 + 1.1),
@@ -49,13 +52,12 @@ def make_phased(fills=True):
                 (DeviceOp("dgrad", t0 + 4.4, t0 + 7.0, True), t0 + 5.5),
                 (DeviceOp("wgrad", t0 + 7.0, t0 + 8.9, True), t0 + 6.5),
                 (DeviceOp("adam", t0 + 9.3, t0 + 9.5, True), t0 + 8.5)]:
+            op.launched = at
             t.ops.append(op)
-            launched.append(at)
     if fills:
-        t.ops += [DeviceOp("fill", 10.6, 10.7, True),
-                  DeviceOp("fill", 19.7, 19.8, True)]
-        launched += [9.6, 19.6]
-    return phases.Phased(t, step_spans(0.0) + step_spans(10.0), launched)
+        t.ops += [DeviceOp("fill", 10.6, 10.7, True, 9.6),
+                  DeviceOp("fill", 19.7, 19.8, True, 19.6)]
+    return t
 
 
 def test_attribution_by_launch_and_by_gap_start():
@@ -83,16 +85,15 @@ def test_the_innermost_open_phase_wins():
 
 
 def test_the_phases_and_the_remainder_add_up():
-    p = make_phased()
-    t = p.trace
-    out = phases.attribute(p)
+    t = make_phased()
+    out = phases.attribute(t)
     assert out.total("launches") == len(t.kernels())
     assert out.total("device_s") == pytest.approx(
         sum(o.end - o.start for o in t.ops))
     assert out.total("device_s") == pytest.approx(trace.busy_seconds(t))
     assert out.total("idle_s") == pytest.approx(
         sum(b - a for a, b in trace.gaps(t)))
-    report = phases.report(p)
+    report = phases.report(t)
     assert report["covered"] is False       # the fills: 1.4% remainder
     for key, total in [("launches", "launches"), ("device_ms", "busy_ms"),
                        ("idle_ms", "gaps_ms")]:
@@ -112,7 +113,7 @@ def test_the_report_reads_the_attribution_per_step():
     assert got["forward"]["idle_ms"] == pytest.approx(600)
     assert got["solver"]["idle_ms"] == pytest.approx(400)
     assert got["backward"]["idle_ms"] == 0
-    ctx = {"kind": "train_step", "trace": p.trace}
+    ctx = {"kind": "train_step", "trace": p}
     assert sum(r["launches"] for r in got.values()) \
         == run.reader("launches_per_step.train")(ctx)
 
@@ -120,14 +121,13 @@ def test_the_report_reads_the_attribution_per_step():
 def test_the_99_percent_guard():
     p = make_phased(fills=False)
     assert phases.attribute(p).covered()
-    device = sum(o.end - o.start for o in p.trace.ops)
+    device = sum(o.end - o.start for o in p.ops)
     # An operation with no launch link, 1.1% of the device time.
     orphan = DeviceOp("orphan", 30.0, 30.0 + 0.011 * device / 0.989, True)
-    p.trace.ops.append(orphan)
-    p.launched.append(None)
+    p.ops.append(orphan)
     assert not phases.attribute(p).covered()
     # Linked, but launched in the step's own time: outside the phases.
-    p.launched[-1] = 9.7
+    orphan.launched = 9.7
     out = phases.attribute(p)
     assert out.linked_s == pytest.approx(out.total("device_s"))
     assert not out.covered()
@@ -146,11 +146,12 @@ def test_no_reading_without_spans_or_links(missing):
                            if s[2] != "monocon.step"]
         assert phases.report(p) == {"phases": None}
     elif missing == "launch links":
-        p.launched = [None] * len(p.launched)
+        for op in p.ops:
+            op.launched = None
         report = phases.report(p)
         assert report["covered"] is False and report["linked_share"] == 0
     else:
-        p = phases.Phased(trace.Trace(wall=1.0, steps=2))
+        p = trace.Trace(wall=1.0, steps=2)
         assert phases.report(p) == {"phases": None}
 
 
@@ -194,17 +195,14 @@ def stub_events():
 
 
 def test_read_profiler_links_launch_times_and_program_spans():
-    stub = SimpleNamespace(events=stub_events)
-    p = phases.read_profiler(stub, 20.0, 2)
-    assert p.trace == trace.from_profiler(stub, 20.0, 2)
-    launched = {(o.name, o.start): at
-                for o, at in zip(p.trace.ops, p.launched)}
+    p = trace.from_profiler(SimpleNamespace(events=stub_events), 20.0, 2)
+    launched = {(o.name, o.start): o.launched for o in p.ops}
     assert launched[("splat_kernel", 1.5)] == pytest.approx(1.1)
     assert launched[("Memcpy HtoD", 12.0)] == pytest.approx(11.2)
     assert launched[("conv", 2.1)] == pytest.approx(2.1)
     assert launched[("dgrad", 14.4)] == pytest.approx(15.5)
     assert launched[("adam", 9.3)] is None
-    assert len(p.trace.ops) == 10 and len(p.trace.spans) == 2
+    assert len(p.ops) == 10 and len(p.spans) == 2
     assert sorted(p.program_spans) == sorted(step_spans(0.0)
                                              + step_spans(10.0))
     out = phases.attribute(p)
@@ -225,9 +223,7 @@ def test_the_benchmarks_trace_reads_the_same_without_program_spans():
     assert trace.idle_pct(a) == trace.idle_pct(b)
     assert trace.gaps(a) == trace.gaps(b)
     assert trace.breakdown(a) == trace.breakdown(b)
-    assert phases.report(phases.read_profiler(
-        SimpleNamespace(events=lambda: without), 20.0, 2)) == {
-            "phases": None}
+    assert b.program_spans == [] and phases.report(b) == {"phases": None}
     label = {"gt_bboxes": torch.zeros(1, 1, 4), "mask": torch.zeros(1, 1),
              "gt_kpts_2d": torch.zeros(1, 1, 18),
              "gt_kpts_valid_mask": torch.zeros(1, 1, 9)}
@@ -242,3 +238,53 @@ def test_the_benchmarks_trace_reads_the_same_without_program_spans():
     for name in OLD:
         assert run.reader(name)(ctxs[0]) == run.reader(name)(ctxs[1]), name
         assert run.reader(name)(ctxs[0]) is not None, name
+
+
+# -- from_profiler on a real profiler --------------------------------------
+
+def program_step(x):
+    """One of the program's spans with a phase inside, in the benchmark's
+    span, around some work on ``x``'s device."""
+    from monocon_tpu_torch.utils.profiling import span
+
+    with torch.profiler.record_function("perfbench.train_step"):
+        with span("monocon.step"), span("monocon.step.forward"):
+            return (x @ x + 1).sum().item()
+
+
+def profiled(activities, x):
+    from torch.profiler import profile
+
+    with profile(activities=activities) as prof:
+        program_step(x)
+    return trace.from_profiler(prof, 1.0, 1)
+
+
+def test_a_real_profiler_keeps_the_programs_spans():
+    from torch.profiler import ProfilerActivity
+
+    t = profiled([ProfilerActivity.CPU], torch.ones(64, 64))
+    assert [n for _, _, n in t.spans] == ["perfbench.train_step"]
+    assert sorted(n for _, _, n in t.program_spans) == [
+        "monocon.step", "monocon.step.forward"]
+    (outer,) = t.spans
+    for start, end, _ in t.program_spans:
+        assert outer[0] <= start <= end <= outer[1]
+    assert t.ops == []
+
+
+@pytest.mark.cuda
+def test_a_real_profiler_links_each_launch_on_the_card(card):
+    from torch.profiler import ProfilerActivity
+
+    x = torch.ones(256, 256, device=card)
+    program_step(x)
+    t = profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA], x)
+    (forward,) = [s for s in t.program_spans
+                  if s[2] == "monocon.step.forward"]
+    assert t.kernels()
+    for op in t.ops:
+        assert op.launched is not None, op
+        assert forward[0] <= op.launched <= forward[1], op
+    out = phases.attribute(t)
+    assert out.launches["forward"] == len(t.kernels())

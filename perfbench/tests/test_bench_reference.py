@@ -1,19 +1,27 @@
-"""The plain reference against the port at small sizes on the CPU: state
-dict keys, the forward, the targets, the losses, the optimizer, the PNG
+"""The plain reference against the port at small sizes on the CPU: each
+configuration's reference model (its state dict keys and its FLOP
+count), the forward, the targets, the losses, the optimizer, the PNG
 decode and the loader's batches."""
+
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from perfbench import check
+from perfbench.counts.flops import count_flops, train_flops
+from perfbench.drivers import port_cfg
 from perfbench.reference import data as ref_data
-from perfbench.reference import model as ref_model
 from perfbench.reference import step as ref_step
 from perfbench.tree import ensure_tree
 from perfbench.weights import seeded_state_dict
 
+ROOT = Path(__file__).resolve().parents[2]
 DATA = {"seed": 3, "image_hw": [60, 150], "max_objects": 6}
+CONFIGS = {c["name"]: c["file"] for c in json.loads(
+    (ROOT / "BENCHMARK.json").read_text())["configs"]}
 
 
 @pytest.fixture(scope="module")
@@ -30,14 +38,42 @@ def port_model(depth, weights):
     return model
 
 
-@pytest.mark.parametrize("depth", [34, 102])
-def test_state_dict_keys_and_shapes_match(depth):
+def configuration(name):
+    return json.loads((ROOT / CONFIGS[name]).read_text())
+
+
+def program_model(config):
+    """The program's detector as the engine builds it from the
+    configuration's ``cfg``."""
     from monocon_tpu_torch.models.detector import MonoConDetector
 
-    port = MonoConDetector(depth).state_dict()
-    ref = ref_model.Detector(depth).state_dict()
+    cfg = port_cfg(config, "", "", 0)
+    return MonoConDetector(cfg.MODEL.BACKBONE.NUM_LAYERS,
+                           cfg.MODEL.HEAD.NUM_CLASSES)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_state_dict_keys_and_shapes_match(name):
+    config = configuration(name)
+    port = program_model(config).state_dict()
+    ref = check.reference_module(config).build(config["model"]).state_dict()
     assert {k: tuple(v.shape) for k, v in port.items()} == {
         k: tuple(v.shape) for k, v in ref.items()}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_reference_flops_equal_the_programs(name):
+    """The reference's count on the meta device, against the program's
+    forward and backward on the CPU, at the tests' small size."""
+    config = configuration(name)
+    model = program_model(config).train()
+    image = torch.zeros(4, 96, 320, 3)
+
+    def fwd_bwd():
+        out = model(image)
+        sum(v.float().mean() for v in out.values()).backward()
+
+    assert train_flops(config, 4, (96, 320)) == count_flops(fwd_bwd)
 
 
 def batch_of(tree, positions, augment, seed=9):
@@ -108,10 +144,10 @@ def test_forward_targets_and_losses_match_the_port(tree):
 
     batch = check._to(batch_of(tree, [0, 1, 2, 3], augment=False), "cpu")
     batch["label"] = random_labels(4, np.random.default_rng(1))
-    weights = seeded_state_dict(
-        ref_model.Detector(34).state_dict(), 5, torch.device("cpu"))
+    config = configuration("dla34-f32")
+    ref = check.reference_module(config).build(config["model"])
+    weights = seeded_state_dict(ref.state_dict(), 5, torch.device("cpu"))
     port = port_model(34, weights).train()
-    ref = ref_model.Detector(34)
     ref.load_state_dict(weights)
     img = normalize_if_raw(batch["img"], batch["img_hw"])
     torch.testing.assert_close(ref_step.normalize(batch["img"],

@@ -1,6 +1,11 @@
 """Reading a ``torch.profiler`` window: device intervals, host spans, the
 union of the device's busy time, the idle gaps and the top operations.
 
+One pass over the profiler's events keeps the device operations, the
+benchmark's ``perfbench.*`` spans, the program's ``monocon.*`` spans and,
+for each device operation, the host time of the runtime or driver call
+that launched it (the call that shares its correlation id).
+
 The arithmetic is that of ``chip_smoke.py``'s ``traced_busy_share`` and
 ``kernel_breakdown``: the device's busy time is the union of its
 operations' intervals (kernels, copies and fills), so operations that
@@ -13,6 +18,11 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 SPAN_PREFIX = "perfbench."
+PROGRAM_SPAN_PREFIX = "monocon."
+# Words in the name of a runtime or driver call that puts work on the
+# device (cudaLaunchKernel, cuLaunchKernelEx, cudaMemcpyAsync,
+# cudaMemsetAsync, ...); it shares its correlation id with that work.
+LAUNCH_WORDS = ("launch", "memcpy", "memset")
 Interval = Tuple[float, float]
 
 
@@ -22,15 +32,21 @@ class DeviceOp:
     start: float        # seconds, on the profiler's clock
     end: float
     kernel: bool        # a kernel, not a copy or a fill
+    # Host time of the call that launched it; None where the profiler
+    # links none.
+    launched: Optional[float] = None
 
 
 @dataclass
 class Trace:
     """What one profiled stretch holds; ``wall`` is its host seconds and
-    ``steps`` the steps (or batches) it covered."""
+    ``steps`` the steps (or batches) it covered. ``spans`` are the
+    benchmark's host spans, ``program_spans`` the program's."""
 
     ops: List[DeviceOp] = field(default_factory=list)
     spans: List[Tuple[float, float, str]] = field(default_factory=list)
+    program_spans: List[Tuple[float, float, str]] = field(
+        default_factory=list)
     wall: float = 0.0
     steps: int = 0
 
@@ -38,13 +54,22 @@ class Trace:
         return [o for o in self.ops if o.kernel and name_part in o.name]
 
 
+def is_launch(name: str) -> bool:
+    """Whether a host event is a runtime or driver call that puts work on
+    the device."""
+    low = name.lower()
+    return low.startswith("cu") and any(w in low for w in LAUNCH_WORDS)
+
+
 def from_profiler(prof, wall: float, steps: int) -> Trace:
-    """The device operations and the ``perfbench.*`` host spans of a
-    finished ``torch.profiler.profile``."""
+    """The device operations with their launch times, and the
+    ``perfbench.*`` and ``monocon.*`` host spans, of a finished
+    ``torch.profiler.profile``."""
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
     trace = Trace(wall=wall, steps=steps)
+    op_ids, launches = [], {}
     for e in prof.events():
         start, end = e.time_range.start / 1e6, e.time_range.end / 1e6
         if e.device_type == cuda:
@@ -53,8 +78,15 @@ def from_profiler(prof, wall: float, steps: int) -> Trace:
             low = e.name.lower()
             copy = low.startswith(("memcpy", "memset")) or "memcpy" in low
             trace.ops.append(DeviceOp(e.name, start, end, not copy))
+            op_ids.append(e.id)
         elif e.name.startswith(SPAN_PREFIX):
             trace.spans.append((start, end, e.name))
+        elif e.name.startswith(PROGRAM_SPAN_PREFIX):
+            trace.program_spans.append((start, end, e.name))
+        elif is_launch(e.name):
+            launches[e.id] = start
+    for op, i in zip(trace.ops, op_ids):
+        op.launched = launches.get(i)
     return trace
 
 
